@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's cold-start serve path on one NVIDIA GPU and check it.
+"""Run the PyTorch port's cold-start serve path and its continuous-batching
+decode tier on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -9,15 +10,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions, compute capability; then build the hand-written kernels from
    ``src/repro_torch/kernels/csrc`` with nvcc.
 2. Kernels vs plain: each kernel against its plain PyTorch version on CUDA
-   tensors, at the serve path's shapes and at edge cases (ragged lengths,
-   q_offset, bidirectional, length 0 and S, NaN past length), with
-   kernel / plain / library times (CUDA events) and the least time the card
-   could take (``bound_ms``).
+   tensors, at the paths' shapes and at edge cases (ragged lengths,
+   q_offset, bidirectional, length 0 and S, NaN past length; for the paged
+   kernel also a second page layout, bit-identical, NaN in the null and
+   unmapped pages, f32, MQA/GQA at D=64, and bit-identical to the contiguous
+   kernel on the same logical cache), with kernel / plain / library times (CUDA events)
+   and the least time the card could take (``bound_ms``).
 3. Path: ``deploy`` full-width llama3.2-3b (bf16, 28 layers, random weights
    from the spec's seed) on the GPU, then serve 3 cold requests through the
    ``unikernel`` driver (boot -> run -> exit), counting kernel launches; time
    each boot track alone; then hold the kernel path's prefill logits and the
    plain path's, on the same weights, against the plain path in float32.
+3b. Decode tier, on phase 3's deployment: ``ensure_decode(slots=8,
+   page_size=16)`` (export, save, load, verify the admit and step
+   programs), then a ``DecodeScheduler`` on a one-host ``Cluster`` serves 12
+   requests of 512 prompt tokens submitted in one burst, budgets cycling
+   through 16, 3, 7, 16, 1, 5; checks every budget, one boot and one
+   cool-down, and launches (flash = L x admits, paged = L x steps, no
+   contiguous decode); then holds one admit call (its logits and the K/V it
+   wrote) and one step call, each replayed on clones of the pool it saw
+   mid-run, kernel route and plain route, against the plain route in float32.
 4. A ``kernels`` JSON line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -43,6 +55,9 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
 SPEC = dict(arch="llama3.2-3b", reduced=False, batch_size=4, prompt_len=512, decode_steps=16)
 N_REQUESTS = 3
+DECODE_SLOTS, PAGE_SIZE = 8, 16
+DECODE_BUDGETS = [16, 3, 7, 16, 1, 5]
+N_DECODE_REQUESTS = 12
 
 
 def log(msg: str) -> None:
@@ -66,6 +81,10 @@ def time_ms(torch, fn, iters: int) -> float:
 def bound(nbytes: float, flops: float, flop_rate: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
 
 
 # --------------------------------------------------------------------- phase 2
@@ -128,6 +147,262 @@ def check_decode(torch, F, da, ref, gen, case, timed: bool):
     return row
 
 
+def paged_layout(torch, kc, vc, lengths, page_size, null_fill, perm_seed):
+    """Scatter a logical cache [B, S, Hkv, D] into a page pool [1 + B*S/ps, ps,
+    Hkv, D] under page ids permuted by ``perm_seed`` (None: in order). Each row
+    maps ceil(len / ps) pages; its other table entries and the null page 0
+    hold ``null_fill``. Returns (k_pages, v_pages, table)."""
+    B, S, Hkv, D = kc.shape
+    mp = S // page_size
+    P = 1 + B * mp
+    ids = torch.arange(1, P)
+    if perm_seed is not None:
+        ids = ids[torch.randperm(P - 1, generator=torch.Generator().manual_seed(perm_seed))]
+    kp = torch.full((P, page_size, Hkv, D), null_fill, dtype=kc.dtype, device="cuda")
+    vp = torch.full_like(kp, null_fill)
+    table = torch.zeros((B, mp), dtype=torch.int32)
+    for b, n in enumerate(lengths):
+        live = -(-min(n, S) // page_size)
+        pages = ids[b * mp:b * mp + live]
+        table[b, :live] = pages.to(torch.int32)
+        kp[pages.cuda()] = kc[b].reshape(mp, page_size, Hkv, D)[:live]
+        vp[pages.cuda()] = vc[b].reshape(mp, page_size, Hkv, D)[:live]
+    return kp, vp, table.cuda()
+
+
+def check_paged(torch, F, pda, da, ref, gen, case, timed: bool):
+    """The paged kernel against its plain version; the same logical cache under
+    another page layout must give bit-identical output; NaN past each length
+    (in the last page, in unmapped pages and in the null page) must not leak;
+    length-0 rows are exactly 0. At the path's shape (``timed``) also against
+    the contiguous decode kernel on the same logical cache."""
+    B, page_size, mp, Hq, Hkv, D, lengths, dtype = case
+    dt = getattr(torch, dtype)
+    S = mp * page_size
+    q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(dt)
+    kc = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dt)
+    vc = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dt)
+    for b, n in enumerate(lengths):            # logical positions past length hold NaN
+        kc[b, n:] = float("nan")
+        vc[b, n:] = float("nan")
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kp, vp, table = paged_layout(torch, kc, vc, lengths, page_size, float("nan"), 1)
+    kp2, vp2, table2 = paged_layout(torch, kc, vc, lengths, page_size, float("nan"), None)
+    out = pda.paged_decode_attention(q, kp, vp, table, length)
+    out2 = pda.paged_decode_attention(q, kp2, vp2, table2, length)
+    exp = ref.paged_decode_attention(q, kp, vp, table, length)
+    torch.cuda.synchronize()
+    err = (out.float() - exp.float()).abs().max().item()
+    layout_bitwise = bool(torch.equal(out, out2))
+    zero_rows_exact = all(bool((out[b] == 0).all()) for b, n in enumerate(lengths) if n == 0)
+    ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype] and zero_rows_exact \
+        and layout_bitwise
+    row = {"case": [B, page_size, mp, Hq, Hkv, D, list(lengths), dtype], "max_abs_err": err,
+           "layout_bitwise": layout_bitwise, "ok": ok}
+    if timed:
+        contig = da.decode_attention(q, kc, vc, length)
+        torch.cuda.synchronize()
+        row["vs_contiguous_max_abs_err"] = (out.float() - contig.float()).abs().max().item()
+        # the two kernels share one sweep whose order depends only on logical
+        # positions, so the paged kernel must give the contiguous one's bits
+        row["vs_contiguous_bitwise"] = bool(torch.equal(out, contig))
+        row["ok"] = ok and row["vs_contiguous_bitwise"]
+        live = sum(min(n, S) for n in lengths)
+        nbytes = (2 * q.numel() + 2 * live * Hkv * D) * q.element_size() + 4 * (table.numel() + B)
+        rate = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * Hq * D * live, rate)
+        row["ms"] = time_ms(torch, lambda: pda.paged_decode_attention(q, kp, vp, table, length),
+                            200)
+        row["plain_ms"] = time_ms(torch, lambda: ref.paged_decode_attention(
+            q, kp, vp, table, length), 20)
+        # no one PyTorch call computes it: a gather of the chains, then masked SDPA
+        mask = (torch.arange(S, device="cuda")[None, :] < length[:, None])[:, None, None, :]
+        tl = table.long()
+
+        def library():
+            kg = kp[tl].reshape(B, S, Hkv, D).transpose(1, 2)
+            vg = vp[tl].reshape(B, S, Hkv, D).transpose(1, 2)
+            return F.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask,
+                                                  enable_gqa=True)
+        row["library_ms"] = time_ms(torch, library, 200)
+    return row
+
+
+# -------------------------------------------------------------------- phase 3b
+
+CAPTURE_STEP = 4                    # the step whose inputs the numeric gate replays
+CAPTURE_ADMIT = 8                   # the admit it replays: a backfill beside live rows
+
+
+def decode_tier(torch, dep) -> dict:
+    """Phase 3b: the continuous-batching decode tier at full width on ``dep``.
+    Returns the kernel launches of the burst."""
+    import numpy as np
+    from repro_torch import pytree
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.core.decode import DecodeConfig, DecodeScheduler
+    from repro_torch.core.deploy import make_admit_fn, make_step_fn
+    from repro_torch.core.metrics import Recorder, now
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    cfg, spec = dep.model.cfg, dep.spec
+    L = cfg.n_layers
+    t0 = now()
+    bundle = dep.ensure_decode(DECODE_SLOTS, PAGE_SIZE)
+    pool_gb = 2 * L * bundle.n_pages * bundle.page_size * cfg.n_kv_heads * \
+        cfg.resolved_head_dim * 2 / 1e9
+    log(f"ensure_decode: {now() - t0:.1f} s [" +
+        " ".join(f"{k} {v:.2f}" for k, v in bundle.build_s.items()) +
+        f"] | slots {bundle.slots} page_size {bundle.page_size} max_pages "
+        f"{bundle.max_pages} n_pages {bundle.n_pages} | pools {pool_gb:.3f} GB")
+
+    # Observe the bundle's two programs without changing them: each call's
+    # device-synchronised wall time, and a copy of the inputs and logits of
+    # one mid-run call of each for the numeric gates.
+    calls = {"admit": [], "step": []}
+    at = {"admit": CAPTURE_ADMIT, "step": CAPTURE_STEP}
+    captured = {"admit": {}, "step": {}}
+
+    def observed(kind, program):
+        def run(params, *args):
+            cap = captured[kind]
+            take = len(calls[kind]) == at[kind]
+            if take:
+                cap["params"] = params
+                cap["args"] = [a.clone() for a in args]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = program(params, *args)
+            torch.cuda.synchronize()
+            calls[kind].append(time.perf_counter() - t)
+            if take:
+                cap["logits"] = out[0].clone()
+            return out
+        return run
+
+    sched = DecodeScheduler(dep, Cluster(n_hosts=1), Recorder(),
+                            DecodeConfig(slots=DECODE_SLOTS, page_size=PAGE_SIZE))
+    sched.bundle = dataclasses.replace(bundle, admit=observed("admit", bundle.admit),
+                                       step=observed("step", bundle.step))
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (N_DECODE_REQUESTS, 1, spec.prompt_len), dtype=np.int32)
+    budgets = [DECODE_BUDGETS[i % len(DECODE_BUDGETS)] for i in range(N_DECODE_REQUESTS)]
+    ops.reset_launch_counts()
+    t0 = now()
+    futs = [sched.submit(p, max_new=b, label=f"decode{i}")
+            for i, (p, b) in enumerate(zip(prompts, budgets))]
+    outs = [f.result(900) for f in futs]
+    t_served = now()
+    sched.close()
+    launches = ops.launch_counts()
+
+    s = sched.summary()
+    tl = sched.recorder.timelines("decode0")[0]
+    stages = " ".join(f"{k} {v:.3f}" for k, v in tl.stage_s.items())
+    admit_s, step_s = sum(calls["admit"]), sum(calls["step"])
+    loop_s = t_served - t0 - tl.t_boot_wall
+    log(f"decode tier: {N_DECODE_REQUESTS} requests, budgets {budgets} | boot [{stages}] "
+        f"t_boot_wall {tl.t_boot_wall:.3f} s | served in {t_served - t0:.3f} s "
+        f"(boot excluded: {loop_s:.3f} s) | admits {sched.admits} x "
+        f"{1e3 * admit_s / max(len(calls['admit']), 1):.2f} ms | steps {sched.steps} x "
+        f"{1e3 * step_s / max(len(calls['step']), 1):.2f} ms = "
+        f"{len(calls['step']) / step_s if step_s else 0.0:.1f} steps/s | host rest of the loop "
+        f"{loop_s - admit_s - step_s:.3f} s | tokens {int(s['tokens_generated'])} | occupancy "
+        f"{s['occupancy']:.3f} | pages high-water {int(s['pages_high_water'])} of "
+        f"{bundle.n_pages - 1} | admit waits {int(s['admit_waits'])} | boots {int(s['boots'])} "
+        f"cooldowns {int(s['cooldowns'])} | launches {launches}")
+    for i, (b, out) in enumerate(zip(budgets, outs)):
+        if out.shape != (b,) or out.dtype != np.int32 or not ((out >= 0) &
+                                                              (out < cfg.vocab_size)).all():
+            raise AssertionError(f"decode request {i}: {out!r}, expected {b} tokens")
+    if s["boots"] != 1 or s["cooldowns"] != 1:
+        raise AssertionError(f"boots {s['boots']} cooldowns {s['cooldowns']}, expected 1 and 1")
+    want = {"flash_attention": L * sched.admits, "decode_attention": 0,
+            "paged_decode_attention": L * sched.steps}
+    if launches != want or sched.admits != N_DECODE_REQUESTS:
+        raise AssertionError(f"decode tier launches {launches} (admits {sched.admits}, "
+                             f"steps {sched.steps}), expected {want}")
+
+    # Numeric gates, as for the prefill logits: one admit and one step program
+    # call, each on clones of the pool it saw mid-run, by the kernel route and
+    # the plain route, each against the plain route in float32 on the same
+    # inputs (one boot, so both calls saw the same weights). The admit is held
+    # by its logits and by the K/V it wrote into the prompt's pages, the step
+    # by its live rows' logits.
+    params = captured["step"]["params"]
+    tokens_a, kp_a, vp_a, ids = captured["admit"]["args"]
+    prompt_pages = ids[:-(-spec.prompt_len // bundle.page_size)].long()
+    kp, vp, table, pos, tok = captured["step"]["args"]
+    live = (table != 0).any(dim=1)
+
+    def replay_admit(admit, prm, k, v):
+        with torch.inference_mode():
+            lg, k, v = admit(prm, tokens_a, k.clone(), v.clone(), ids)
+            return [lg.float(), k[:, prompt_pages].float(), v[:, prompt_pages].float()]
+
+    def replay_step(step, prm, k, v):
+        with torch.inference_mode():
+            return [step(prm, k.clone(), v.clone(), table, pos, tok)[0][live].float()]
+
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), dep.model.max_seq)
+    gates = {}
+    for kind, replay, program, program32, (k, v) in (
+            ("admit", replay_admit, bundle.admit,
+             make_admit_fn(model32, bundle.max_pages, bundle.page_size), (kp_a, vp_a)),
+            ("step", replay_step, bundle.step, make_step_fn(model32), (kp, vp))):
+        got_k = replay(program, params, k, v)
+        with ops.impl_scope("plain"):
+            got_p = replay(program, params, k, v)
+            params32 = pytree.tree_map(lambda t: t.float(), params)
+            got_32 = replay(program32, params32, k.float(), v.float())
+            del params32
+        gates[kind] = {
+            "err_k": [rel_l2(a, b) for a, b in zip(got_k, got_32)],
+            "err_p": [rel_l2(a, b) for a, b in zip(got_p, got_32)],
+            "finite": all(bool(torch.isfinite(a).all()) for a in got_k),
+            "agree": (got_k[0].argmax(-1) == got_p[0].argmax(-1)).float().mean().item(),
+            "max_abs": (got_k[0] - got_p[0]).abs().max().item(),
+            "run_equal": bool(torch.equal(
+                captured[kind]["logits"].float()[live if kind == "step" else slice(None)],
+                got_k[0]))}
+    # the host's share of a step: logits to the host and the greedy argmax
+    t = time.perf_counter()
+    for _ in range(20):
+        np.argmax(captured["step"]["logits"].float().cpu().numpy(), axis=-1)
+    host_ms = (time.perf_counter() - t) / 20 * 1e3
+
+    # information, not gated: greedy tokens of the dense per-request path
+    same_tok = same_req = 0
+    with torch.inference_mode():
+        for p, b, out in zip(prompts, budgets, outs):
+            lg, cache = dep.model.prefill(params, {"tokens": torch.from_numpy(p).cuda()},
+                                          capacity=spec.prompt_len + spec.decode_steps)
+            dense = []
+            for _ in range(b):
+                nxt = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+                dense.append(int(nxt[0, 0]))
+                lg, cache = dep.model.decode(params, cache, nxt)
+            same_tok += sum(int(x == y) for x, y in zip(out.tolist(), dense))
+            same_req += int(out.tolist() == dense)
+    where = {"admit": f"admit {CAPTURE_ADMIT} (logits, prompt K, prompt V)",
+             "step": f"step {CAPTURE_STEP} ({int(live.sum())} live rows' logits)"}
+    for kind, g in gates.items():
+        log(f"decode {where[kind]} vs the f32 plain path: rel_l2 kernel route "
+            f"{[float(f'{e:.4g}') for e in g['err_k']]}, plain bf16 route "
+            f"{[float(f'{e:.4g}') for e in g['err_p']]} (gate: kernel <= 2 x plain) | kernel vs "
+            f"plain bf16 logits: max_abs_err {g['max_abs']:.4g}, argmax agreement "
+            f"{g['agree']:.3f} | replay equals the run's logits: {g['run_equal']}")
+    log(f"decode host side: logits to host + argmax {host_ms:.3f} ms per step | greedy "
+        f"agreement with the dense per-request path: tokens {same_tok / sum(budgets):.3f}, "
+        f"requests {same_req}/{len(budgets)}")
+    for kind, g in gates.items():
+        if not (g["finite"] and all(k <= 2.0 * p for k, p in zip(g["err_k"], g["err_p"]))):
+            raise AssertionError(f"kernel route's decode {kind} outputs are less accurate than "
+                                 "the plain route's")
+    return launches
+
+
 # ------------------------------------------------------------------------ main
 
 def main() -> int:
@@ -148,6 +423,7 @@ def main() -> int:
     from repro_torch.kernels import _cuda, ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -172,6 +448,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_main = (4, 512, 512, 24, 8, 128, True, 0, "bfloat16")
     flash_cases = [flash_main,
+                   (1, 512, 512, 24, 8, 128, True, 0, "bfloat16"),    # the decode tier's admit
                    (2, 77, 77, 24, 8, 128, True, 0, "bfloat16"),      # ragged
                    (2, 64, 192, 24, 8, 128, True, 128, "bfloat16"),   # q_offset
                    (2, 128, 128, 24, 8, 128, False, 0, "bfloat16"),   # bidirectional
@@ -184,13 +461,27 @@ def main() -> int:
                     (3, 100, 4, 4, 32, [1, 0, 100], "bfloat16"),
                     (2, 264, 24, 8, 128, [1, 200], "float32"),
                     (2, 64, 8, 2, 64, [64, 17], "float32")]
+    # B, page_size, max_pages, Hq, Hkv, D, lengths, dtype; the first is the
+    # decode tier's shape (8 slots, 33 pages of 16 = 528 positions)
+    paged_cases = [(8, 16, 33, 24, 8, 128, [528] * 8, "bfloat16"),
+                   (8, 16, 33, 24, 8, 128, [0, 1, 16, 17, 300, 528, 527, 33], "bfloat16"),
+                   (8, 16, 33, 24, 8, 128, [5, 0, 0, 528, 100, 64, 2, 511], "float32"),
+                   (3, 8, 5, 8, 1, 64, [0, 40, 9], "bfloat16"),             # MQA, D=64
+                   (4, 16, 6, 8, 2, 64, [96, 3, 0, 50], "float32"),         # GQA, D=64
+                   (2, 4, 7, 4, 4, 32, [28, 13], "bfloat16")]
     results = {}
-    for name, check, cases, main_case, mod in (
-            ("flash_attention", check_flash, flash_cases, flash_main, fa),
-            ("decode_attention", check_decode, decode_cases, decode_main, da)):
-        rows = [check(torch, F, mod, ref, gen, c, timed=(c is main_case)) for c in cases]
+    for name, check, cases in (
+            ("flash_attention",
+             lambda c, t: check_flash(torch, F, fa, ref, gen, c, t), flash_cases),
+            ("decode_attention",
+             lambda c, t: check_decode(torch, F, da, ref, gen, c, t), decode_cases),
+            ("paged_decode_attention",
+             lambda c, t: check_paged(torch, F, pda, da, ref, gen, c, t), paged_cases)):
+        rows = [check(c, i == 0) for i, c in enumerate(cases)]
         for r in rows:
-            log(f"{name} {r['case']}: max_abs_err {r['max_abs_err']:.3g} "
+            extra = "".join(f" {k} {r[k]}" for k in ("layout_bitwise", "vs_contiguous_bitwise",
+                                                     "vs_contiguous_max_abs_err") if k in r)
+            log(f"{name} {r['case']}: max_abs_err {r['max_abs_err']:.3g}{extra} "
                 f"{'ok' if r['ok'] else 'FAIL'}")
         main = rows[0]
         log(f"{name} at the path's shape: kernel_ms {main['ms']:.4f} plain_ms "
@@ -216,7 +507,8 @@ def main() -> int:
             f"{cfg.n_kv_heads} d_ff {cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype}")
         tokens = torch.from_numpy(dep.example_tokens(seed=1)).cuda()
         want = {"flash_attention": cfg.n_layers,
-                "decode_attention": cfg.n_layers * spec.decode_steps}
+                "decode_attention": cfg.n_layers * spec.decode_steps,
+                "paged_decode_attention": 0}
         driver = UnikernelDriver()
         ops.reset_launch_counts()
         for r in range(N_REQUESTS):
@@ -278,9 +570,6 @@ def main() -> int:
         driver.finish(dep, ex)
         lk, lp = lk.float(), lp.float()
 
-        def rel_l2(a, b) -> float:
-            return ((a - b).norm() / b.norm()).item()
-
         err_k, err_p = rel_l2(lk, l32), rel_l2(lp, l32)
         ak, ap = lk.argmax(-1), lp.argmax(-1)
         gaps = [(lp[r, ap[r]] - lp[r, ak[r]]).item() for r in range(lp.shape[0]) if ak[r] != ap[r]]
@@ -293,6 +582,10 @@ def main() -> int:
         if not (bool(torch.isfinite(lk).all()) and err_k <= 2.0 * err_p):
             raise AssertionError("kernel path's prefill logits are less accurate than the plain "
                                  "path's")
+        del params, lk, lp, l32
+
+        # ---- phase 3b: the decode tier on the same deployment
+        launches_3b = decode_tier(torch, dep)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -300,13 +593,18 @@ def main() -> int:
     sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:33"),
                "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:35")}
+                                    "src/repro/kernels/decode_attention.py:35"),
+               "paged_decode_attention": (
+                   "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+                   "src/repro/kernels/paged_decode_attention.py:40")}
     kernels = []
     for name, r in results.items():
-        if launches[name] == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
+        by_path = {"serve": launches[name], "decode_tier": launches_3b[name]}
+        if sum(by_path.values()) == 0:
+            raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
-                        "replaces": sources[name][1], "launches": launches[name],
+                        "replaces": sources[name][1], "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

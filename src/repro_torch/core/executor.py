@@ -105,6 +105,33 @@ class Executor:
                     self.state = ExecutorState.READY
         return out
 
+    def run_decode(self, fn: Callable, *args, timeline=None) -> Any:
+        """Run a decode-bundle program (admit or step) on this executor's
+        weights and wait for the device.
+
+        The continuous-batching loop owns a long-lived executor and alternates
+        between the two programs of its DecodeBundle, so the program is an
+        argument here instead of the executor's own serve program. Same state
+        machine and busy accounting as :meth:`run`.
+        """
+        with self._lock:
+            if self.state not in (ExecutorState.READY, ExecutorState.RUNNING):
+                raise RuntimeError(f"executor {self.eid} not runnable: {self.state}")
+            self.state = ExecutorState.RUNNING
+        t0 = now()
+        try:
+            with torch.inference_mode():
+                out = fn(self.params, *args)
+            synchronize(self.device)
+            if timeline is not None and not timeline.t_ttfr:
+                timeline.t_ttfr = now()
+        finally:
+            with self._lock:
+                self.busy_seconds += now() - t0
+                if self.state is ExecutorState.RUNNING:
+                    self.state = ExecutorState.READY
+        return out
+
     # -------------------------------------------------------------- lifecycle
     def exit(self) -> None:
         """Drop all references — the unikernel's immediate exit."""

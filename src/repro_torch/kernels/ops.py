@@ -1,10 +1,11 @@
 """Dispatch between the hand-written kernels and their plain versions.
 
-Port of ``repro.kernels.ops``. The model calls :func:`attention` and
-:func:`decode_attention`; each is a ``torch.library`` custom op
-(``repro_torch::flash_attention``, ``repro_torch::decode_attention``) with a
-fake implementation, so ``torch.export`` records it as one opaque node and the
-exported serve program dispatches at run time.
+Port of ``repro.kernels.ops``. The model calls :func:`attention`,
+:func:`decode_attention` and :func:`paged_decode_attention`; each is a
+``torch.library`` custom op (``repro_torch::flash_attention``,
+``repro_torch::decode_attention``, ``repro_torch::paged_decode_attention``)
+with a fake implementation, so ``torch.export`` records it as one opaque node
+and the exported programs dispatch at run time.
 
 The route depends on the tensors' device, never on probing the hardware:
 
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import ref
 
 _VALID = ("auto", "plain", "kernel")
@@ -76,12 +78,14 @@ def use_kernel(device: torch.device) -> bool:
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel name."""
     return {"flash_attention": fa.LAUNCHES.count,
-            "decode_attention": da.LAUNCHES.count}
+            "decode_attention": da.LAUNCHES.count,
+            "paged_decode_attention": pda.LAUNCHES.count}
 
 
 def reset_launch_counts() -> None:
     fa.LAUNCHES.reset()
     da.LAUNCHES.reset()
+    pda.LAUNCHES.reset()
 
 
 # ------------------------------------------------------------------ custom ops
@@ -112,6 +116,20 @@ def _(q, k_cache, v_cache, length):
     return torch.empty_like(q)
 
 
+@torch.library.custom_op("repro_torch::paged_decode_attention", mutates_args=())
+def _paged_decode_attention_op(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, page_table: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    if use_kernel(q.device):
+        return pda.paged_decode_attention(q, k_pages, v_pages, page_table, lengths)
+    return ref.paged_decode_attention(q, k_pages, v_pages, page_table, lengths)
+
+
+@_paged_decode_attention_op.register_fake
+def _(q, k_pages, v_pages, page_table, lengths):
+    return torch.empty_like(q)
+
+
 # ------------------------------------------------------------------ entry points
 
 def attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
@@ -125,3 +143,13 @@ def decode_attention(q, k_cache, v_cache, length):
     B = q.shape[0]
     length = torch.as_tensor(length, dtype=torch.int32, device=q.device).expand(B)
     return torch.ops.repro_torch.decode_attention(q, k_cache, v_cache, length.contiguous())
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths):
+    """Single-token attention through a page table. q: [B,Hq,D]; pools
+    [P,page_size,Hkv,D]; page_table: int32 [B,max_pages]; lengths: int, or
+    int32 tensor [] / [B]."""
+    B = q.shape[0]
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device).expand(B)
+    return torch.ops.repro_torch.paged_decode_attention(
+        q, k_pages, v_pages, page_table.to(torch.int32).contiguous(), lengths.contiguous())

@@ -6,10 +6,13 @@ the tests hold them against the JAX package, and ``chip_smoke.py`` holds each
 hand-written kernel against them on the card. The scans over blocks become
 Python loops.
 
-One deliberate difference from ``repro.kernels.ref.decode_attention``: V is
-zeroed under the length mask before the PV product, as the Pallas kernel does
-(``repro/kernels/decode_attention.py:59``), so NaN in cache slots past
-``length`` never leaks (the JAX reference turns ``0 * NaN`` into NaN).
+One deliberate difference from ``repro.kernels.ref.decode_attention`` (and
+so from its ``paged_decode_attention``, which gathers and then applies it): V
+is zeroed under the length mask before the PV product, as the Pallas kernels
+do (``repro/kernels/decode_attention.py:59``,
+``repro/kernels/paged_decode_attention.py:60-64``), so NaN in cache slots or
+pages past ``length`` never leaks (the JAX reference turns ``0 * NaN`` into
+NaN).
 """
 from __future__ import annotations
 
@@ -135,3 +138,23 @@ def decode_attention(q, k_cache, v_cache, length, *, block_kv: int = 1024,
         return m, l, acc
     l_safe = torch.where(l == 0, 1.0, l)
     return (acc / l_safe[..., None]).reshape(B, Hq, D).to(q.dtype)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           block_kv: int = 1024):
+    """Single-token attention against a paged KV cache (gather, then the
+    contiguous math of :func:`decode_attention`).
+
+    q: [B, Hq, D]; k_pages, v_pages: [P, page_size, Hkv, D]; page_table:
+    int [B, max_pages] (page ids per sequence; unused entries point at the
+    null page 0); lengths: int or int32 tensor [] / [B]. Positions >= length,
+    including all a null-page entry contributes, are masked, and V is zeroed
+    under the mask, so NaN in the null page or in unmapped pages never leaks.
+    """
+    B = q.shape[0]
+    _, page_size, Hkv, D = k_pages.shape
+    max_pages = page_table.shape[1]
+    table = page_table.long()
+    k = k_pages[table].reshape(B, max_pages * page_size, Hkv, D)
+    v = v_pages[table].reshape(B, max_pages * page_size, Hkv, D)
+    return decode_attention(q, k, v, lengths, block_kv=block_kv)

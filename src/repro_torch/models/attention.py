@@ -1,12 +1,13 @@
 """GQA attention in two modes: full sequence (prefill, returns K/V) and cached decode.
 
-Port of ``repro.models.attention`` (``attention_full`` and
-``attention_decode``). The sequence-sharded decode branch and the paged
-decode come with later slices.
+Port of ``repro.models.attention`` (``attention_full``, ``attention_decode``
+and ``attention_decode_paged``). The sequence-sharded decode branch comes
+with a later slice.
 
-``attention_decode`` writes the new K/V into the cache **in place** and
-returns the same tensors (the JAX version returns updated copies): a
-per-step copy of the cache would be bandwidth the decode step does not need.
+``attention_decode`` and ``attention_decode_paged`` write the new K/V into
+the cache or the page pool **in place** and return the same tensors (the JAX
+versions return updated copies): a per-step copy of the cache, or of a
+layer's page pool, would be bandwidth the decode step does not need.
 """
 from __future__ import annotations
 
@@ -101,6 +102,36 @@ def attention_decode(cfg, p: dict, x_t: torch.Tensor, k_cache: torch.Tensor,
         length = (pos + 1).to(torch.int32)
     o = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache, length)  # [B,nq,hd]
     return _out(cfg, p, o[:, None]), k_cache, v_cache
+
+
+def attention_decode_paged(cfg, p: dict, x_t: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           pos: torch.Tensor, rope):
+    """One-token attention through a page table (continuous batching).
+
+    x_t: [B,1,d]; k_pages/v_pages: [P,page_size,nkv,hd], one layer's view of
+    the shared pool (contiguous, updated in place); page_table: int32
+    [B,max_pages]; pos: int32 [B] per-row positions; rope:
+    ``positional_tables`` of ``decode_positions`` (or None). Writes each row's
+    new K/V at ``page_table[row, pos // page_size]``, offset
+    ``pos % page_size`` (an empty slot's all-zero table row sends its write to
+    the null page 0), then attends through the table up to ``pos + 1``.
+    Returns (y [B,1,d], k_pages, v_pages).
+    """
+    B = x_t.shape[0]
+    page_size = k_pages.shape[1]
+    q = _proj_q(cfg, p, x_t)                                          # [B,1,nq,hd]
+    k_t, v_t = _proj_kv(cfg, p, x_t)                                  # [B,1,nkv,hd]
+    if rope is not None:
+        q, k_t = rotate(q, rope), rotate(k_t, rope)
+    pos = pos.long()
+    page = page_table[torch.arange(B, device=x_t.device), pos // page_size].long()
+    off = pos % page_size
+    k_pages[page, off] = k_t[:, 0].to(k_pages.dtype)
+    v_pages[page, off] = v_t[:, 0].to(v_pages.dtype)
+    o = ops.paged_decode_attention(q[:, 0].contiguous(), k_pages, v_pages, page_table,
+                                   pos + 1)                           # [B,nq,hd]
+    return _out(cfg, p, o[:, None]), k_pages, v_pages
 
 
 def decode_positions(batch: int, pos, device) -> torch.Tensor:

@@ -15,7 +15,8 @@ from repro_torch.models.layers import (
     norm_specs,
 )
 from repro_torch.models.transformer import (
-    make_positions, uniform_cache_specs, uniform_decode, uniform_forward, uniform_specs,
+    make_positions, stack_decode_paged, stack_page_pool_specs, uniform_cache_specs,
+    uniform_decode, uniform_forward, uniform_specs,
 )
 
 
@@ -79,6 +80,32 @@ class Model:
         x, inner = uniform_decode(self.cfg, params["stack"], x, cache["inner"], pos)
         logits = self._head(params, x)[:, 0]
         return logits, {"inner": inner, "pos": pos + 1}
+
+    # ------------------------------------------------------------- paged decode
+    def decode_paged(self, params, k_pages, v_pages, page_table, pos, token: torch.Tensor):
+        """One continuous-batching step against the shared page pool.
+
+        k_pages/v_pages: [L, P, page_size, nkv, hd] (written in place);
+        page_table: int32 [B, max_pages]; pos: int32 [B] (per-row current
+        length; the host step loop owns it, mirroring the PagePool's chain
+        state); token: [B, 1] int. Returns (logits [B, V], k_pages, v_pages).
+        Rows whose table row is all zeros are empty slots: their reads and
+        writes land on the null page and their logits are garbage the step
+        loop discards. Uniform stack only.
+        """
+        x = embed_tokens(self.cfg, params["embed"], token, pos_offset=pos)
+        x, k_pages, v_pages = stack_decode_paged(self.cfg, params["stack"], x, k_pages,
+                                                 v_pages, page_table, pos)
+        logits = self._head(params, x)[:, 0]
+        return logits, k_pages, v_pages
+
+    def page_pool_specs(self, n_pages: int, page_size: int):
+        return stack_page_pool_specs(self.cfg, n_pages, page_size)
+
+    def init_page_pool(self, n_pages: int, page_size: int, device):
+        """Zero K and V pools on ``device``."""
+        return init_tree(self.page_pool_specs(n_pages, page_size),
+                         torch.Generator(device=torch.device(device)))
 
     # ------------------------------------------------------------------- cache
     def cache_specs(self, batch: int, capacity: int):

@@ -127,3 +127,50 @@ def uniform_cache_specs(cfg, batch: int, capacity: int):
     return {"k": _zeros_spec((L, batch, capacity, nkv, hd), dt, kv_axes),
             "v": _zeros_spec((L, batch, capacity, nkv, hd), dt, kv_axes)}
 
+
+def uniform_decode_paged(cfg, sp, x_t, k_pages, v_pages, page_table, pos):
+    """Paged decode step for the uniform stack (continuous batching).
+
+    k_pages/v_pages: [L, P, page_size, nkv, hd], one pool per layer sharing
+    ONE page table (a logical page spans every layer, so the allocator
+    accounts it once), written in place through the per-layer views
+    ``k_pages[i]``; pos: int32 [B] per row. Returns (x_t, k_pages, v_pages).
+    """
+    _require_uniform(cfg)
+    rope = positional_tables(cfg, attn.decode_positions(x_t.shape[0], pos, x_t.device))
+    for i in range(cfg.n_layers):
+        p = _layer(sp, i)
+        h = apply_norm(cfg, p["ln1"], x_t)
+        a, _, _ = attn.attention_decode_paged(cfg, p["attn"], h, k_pages[i], v_pages[i],
+                                              page_table, pos, rope)
+        x_t = x_t + a
+        h2 = apply_norm(cfg, p["ln2"], x_t)
+        x_t = x_t + apply_mlp(cfg, p["mlp"], h2)
+    return x_t, k_pages, v_pages
+
+
+def uniform_page_pool_specs(cfg, n_pages: int, page_size: int):
+    """Zero-init page-pool specs for the uniform stack: K and V pools shaped
+    [L, n_pages, page_size, nkv, hd] (page 0 is the reserved null page)."""
+    _require_uniform(cfg)
+    L, hd, nkv = cfg.n_layers, cfg.resolved_head_dim, cfg.n_kv_heads
+    dt = torch_dtype(cfg.dtype)
+    axes = ("layers", None, "kv_seq", "kv_heads", "head_dim")
+    return {"k_pages": _zeros_spec((L, n_pages, page_size, nkv, hd), dt, axes),
+            "v_pages": _zeros_spec((L, n_pages, page_size, nkv, hd), dt, axes)}
+
+
+def _require_paged(cfg) -> None:
+    if family_kind(cfg) != "uniform":
+        raise ValueError(
+            f"paged decode supports the uniform stack only, not {family_kind(cfg)}")
+
+
+def stack_decode_paged(cfg, sp, x_t, k_pages, v_pages, page_table, pos):
+    _require_paged(cfg)
+    return uniform_decode_paged(cfg, sp, x_t, k_pages, v_pages, page_table, pos)
+
+
+def stack_page_pool_specs(cfg, n_pages: int, page_size: int):
+    _require_paged(cfg)
+    return uniform_page_pool_specs(cfg, n_pages, page_size)

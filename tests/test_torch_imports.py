@@ -32,11 +32,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
 
 def test_port_sources_were_found():
     names = {p.name for p in PORT_FILES}
-    assert {"ops.py", "deploy.py", "boot.py", "chip_smoke.py"} <= names
+    assert {"ops.py", "deploy.py", "boot.py", "chip_smoke.py", "decode.py", "paging.py",
+            "cluster.py", "scheduler.py", "resilience.py",
+            "paged_decode_attention.py"} <= names
 
 
 def test_importing_the_port_builds_nothing_and_loads_no_jax():
-    code = ("import sys; import repro_torch.kernels.ops, repro_torch.core.drivers; "
+    code = ("import sys; import repro_torch.kernels.ops, repro_torch.core.drivers, "
+            "repro_torch.core.decode, repro_torch.core.cluster; "
             "from repro_torch.kernels import _cuda; "
             "assert _cuda._lib is None; "
             "assert not [m for m in sys.modules if m.split('.')[0] in "
@@ -65,20 +68,34 @@ def test_routing_is_by_device_with_no_capability_fallback():
 
 def test_kernel_impl_on_cpu_tensors_raises():
     q = torch.zeros(1, 4, 2, 32)
+    pages, table = torch.zeros(3, 4, 1, 32), torch.zeros(1, 2, dtype=torch.int32)
     with ops.impl_scope("kernel"):
         with pytest.raises(RuntimeError, match="CUDA"):
             ops.attention(q, q[:, :, :1], q[:, :, :1])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ops.decode_attention(q[:, 0], q[:, :, :1], q[:, :, :1], 2)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ops.paged_decode_attention(q[:, 0], pages, pages, table, 2)
+    # and on the CPU, "auto" and "plain" take the plain versions of all three ops
+    for impl in ("auto", "plain"):
+        with ops.impl_scope(impl):
+            assert ops.paged_decode_attention(q[:, 0], pages, pages, table, 2).shape == (1, 2, 32)
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
     q = torch.zeros(1, 4, 2, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA tensors"):
         da.decode_attention(q[:, 0], q, q, 4)
-    assert fa.LAUNCHES.count == 0 and da.LAUNCHES.count == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pda.paged_decode_attention(q[:, 0], q, q, torch.zeros(1, 1, dtype=torch.int32), 4)
+    assert fa.LAUNCHES.count == 0 and da.LAUNCHES.count == 0 and pda.LAUNCHES.count == 0
+    assert set(ops.launch_counts()) == {"flash_attention", "decode_attention",
+                                        "paged_decode_attention"}
 
 
 def test_cuda_call_without_a_toolkit_raises_instead_of_falling_back(tmp_path, monkeypatch):
@@ -97,4 +114,5 @@ def test_source_hash_covers_every_kernel_source():
     h = _cuda.source_hash()
     assert len(h) == 16
     names = {p.name for p in _cuda.CSRC.iterdir()}
-    assert {"flash_attention.cu", "decode_attention.cu", "common.cuh"} <= names
+    assert {"flash_attention.cu", "decode_attention.cu", "paged_decode_attention.cu",
+            "decode_sweep.cuh", "common.cuh"} <= names
