@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's cold-start serve path and its continuous-batching
-decode tier on one NVIDIA GPU and check them.
+"""Run the PyTorch port's cold-start serve path (llama3.2-3b and xlstm-1.3b)
+and its continuous-batching decode tier on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -14,13 +14,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    q_offset, bidirectional, length 0 and S, NaN past length; for the paged
    kernel also a second page layout, bit-identical, NaN in the null and
    unmapped pages, f32, MQA/GQA at D=64, and bit-identical to the contiguous
-   kernel on the same logical cache), with kernel / plain / library times (CUDA events)
-   and the least time the card could take (``bound_ms``).
-3. Path: ``deploy`` full-width llama3.2-3b (bf16, 28 layers, random weights
-   from the spec's seed) on the GPU, then serve 3 cold requests through the
-   ``unikernel`` driver (boot -> run -> exit), counting kernel launches; time
-   each boot track alone; then hold the kernel path's prefill logits and the
-   plain path's, on the same weights, against the plain path in float32.
+   kernel on the same logical cache; for the mLSTM kernel padding, S shorter
+   than a chunk, a carried state, f32, the reduced dims and large input
+   gates), with kernel / plain / library times (CUDA events) and the least
+   time the card could take (``bound_ms``).
+3. Path: ``deploy`` full-width llama3.2-3b (bf16, its depth cut to 8 of
+   28 layers for the time limit, random weights from the spec's seed) on the
+   GPU, then serve 2 cold requests through the ``unikernel`` driver (boot ->
+   run -> exit), counting kernel launches; time each boot track alone; then
+   hold every kernel call of a kernel-path prefill against its plain version
+   on the same inputs, and the kernel path's prefill logits and the plain
+   path's, on the same weights, against the plain path in float32.
 3b. Decode tier, on phase 3's deployment: ``ensure_decode(slots=8,
    page_size=16)`` (export, save, load, verify the admit and step
    programs), then a ``DecodeScheduler`` on a one-host ``Cluster`` serves 12
@@ -30,6 +34,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    contiguous decode); then holds one admit call (its logits and the K/V it
    wrote) and one step call, each replayed on clones of the pool it saw
    mid-run, kernel route and plain route, against the plain route in float32.
+3c. The xlstm serve path, after llama's deployment is freed: ``deploy``
+   full-width xlstm-1.3b (bf16, 48 blocks: 6 periods of 7 mLSTM + 1 sLSTM,
+   random weights from the spec's seed), then phase 3's checks: 3 cold
+   requests (42 mLSTM launches each, no attention), each boot track alone,
+   every mLSTM call of a kernel-path prefill against its plain version, and
+   the prefill-logit gate against the plain path in float32.
 4. A ``kernels`` JSON line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -39,7 +49,9 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import shutil
 import subprocess
@@ -53,8 +65,17 @@ BF16_FLOP_PER_S = 989e12            # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12              # f32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
-SPEC = dict(arch="llama3.2-3b", reduced=False, batch_size=4, prompt_len=512, decode_steps=16)
-N_REQUESTS = 3
+LLAMA_LAYERS = 8                    # of 28: the llama paths' depth, cut for the time limit
+LLAMA_ARCH = f"llama3.2-3b:{LLAMA_LAYERS}L"
+SPEC = dict(arch=LLAMA_ARCH, reduced=False, batch_size=4, prompt_len=512, decode_steps=16)
+XLSTM_SPEC = dict(SPEC, arch="xlstm-1.3b")
+LLAMA_REQUESTS = 2                  # 3 before the xlstm phase; cut for the time limit
+XLSTM_REQUESTS = 3
+# mLSTM outputs, and every kernel call of a path's prefill, are held against
+# the plain version by max |got - want| / max(1, max |want|), since an mLSTM
+# row whose normaliser is small is large: bf16 outputs within 2e-2, f32
+# outputs (the mLSTM state among them) within 1e-4
+SCALED_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 DECODE_SLOTS, PAGE_SIZE = 8, 16
 DECODE_BUDGETS = [16, 3, 7, 16, 1, 5]
 N_DECODE_REQUESTS = 12
@@ -228,6 +249,59 @@ def check_paged(torch, F, pda, da, ref, gen, case, timed: bool):
     return row
 
 
+def flat_tensors(x) -> list:
+    return [x] if hasattr(x, "dtype") else [t for y in x for t in flat_tensors(y)]
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| / max(1, max |want|)."""
+    return ((got.float() - want.float()).abs().max() /
+            want.float().abs().max().clamp(min=1.0)).item()
+
+
+def check_mlstm(torch, mk, ref, gen, case, timed: bool):
+    """The mLSTM kernel against ``ref.mlstm_chunked``. Gates are drawn like the
+    model's: i ~ N(0, 1) (x ``i_scale``), f ~ N(0, 1) + 3 (``f_bias``). With
+    ``split``, the kernel runs the first ``split`` steps, then the rest from
+    the state it returned, against one long plain pass."""
+    B, S, H, Dk, Dv, dtype, i_scale, split = case
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, H, Dk, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, S, H, Dk, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, S, H, Dv, generator=gen, device="cuda").to(dt)
+    ig = i_scale * torch.randn(B, S, H, generator=gen, device="cuda")
+    fg = torch.randn(B, S, H, generator=gen, device="cuda") + 3.0
+    if split:
+        h1, st = mk.mlstm(q[:, :split].contiguous(), k[:, :split].contiguous(),
+                          v[:, :split].contiguous(), ig[:, :split], fg[:, :split])
+        h2, state = mk.mlstm(q[:, split:].contiguous(), k[:, split:].contiguous(),
+                             v[:, split:].contiguous(), ig[:, split:], fg[:, split:], st)
+        h = torch.cat([h1, h2], dim=1)
+    else:
+        h, state = mk.mlstm(q, k, v, ig, fg)
+    exp_h, exp_state = ref.mlstm_chunked(q, k, v, ig, fg)
+    torch.cuda.synchronize()
+    err_h = scaled_err(h, exp_h)
+    err_state = [scaled_err(a, b) for a, b in zip(state, exp_state)]
+    finite = bool(torch.isfinite(h).all()) and all(bool(torch.isfinite(t).all()) for t in state)
+    ok = finite and err_h <= SCALED_TOL[dtype] and max(err_state) <= SCALED_TOL["float32"]
+    row = {"case": list(case), "max_abs_err": (h.float() - exp_h.float()).abs().max().item(),
+           "max_abs_err_C_n_m": [(a - b).abs().max().item() for a, b in zip(state, exp_state)],
+           "scaled_err_h": err_h, "scaled_err_C_n_m": err_state, "ok": ok}
+    if timed:
+        c = 64                                    # the kernel's chunk
+        nchunks = -(-S // c)
+        nbytes = (q.numel() + k.numel() + v.numel() + h.numel()) * q.element_size() + \
+            4 * (ig.numel() + fg.numel() + sum(t.numel() for t in state))
+        flops = 2.0 * (2 * c * c * Dk + c * c * Dv + 2 * c * Dk * Dv) * nchunks * B * H
+        rate = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, rate)
+        row["ms"] = time_ms(torch, lambda: mk.mlstm(q, k, v, ig, fg), 20)
+        row["plain_ms"] = time_ms(torch, lambda: ref.mlstm_chunked(q, k, v, ig, fg), 3)
+        row["library_ms"] = None     # no single PyTorch call computes the chunkwise mLSTM
+    return row
+
+
 # -------------------------------------------------------------------- phase 3b
 
 CAPTURE_STEP = 4                    # the step whose inputs the numeric gate replays
@@ -319,7 +393,7 @@ def decode_tier(torch, dep) -> dict:
     if s["boots"] != 1 or s["cooldowns"] != 1:
         raise AssertionError(f"boots {s['boots']} cooldowns {s['cooldowns']}, expected 1 and 1")
     want = {"flash_attention": L * sched.admits, "decode_attention": 0,
-            "paged_decode_attention": L * sched.steps}
+            "paged_decode_attention": L * sched.steps, "mlstm": 0}
     if launches != want or sched.admits != N_DECODE_REQUESTS:
         raise AssertionError(f"decode tier launches {launches} (admits {sched.admits}, "
                              f"steps {sched.steps}), expected {want}")
@@ -403,6 +477,167 @@ def decode_tier(torch, dep) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phases 3 and 3c
+
+KERNEL_MODULES = ("fa", "da", "pda", "mk")        # the kernel modules ``ops`` calls
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls(ops):
+    """While open, every kernel wrapper that ``ops`` calls keeps each call's
+    (name, module, args, kwargs, output) in the yielded list."""
+    calls, saved = [], []
+    for attr in KERNEL_MODULES:
+        module = getattr(ops, attr)
+        name = module.__name__.rsplit(".", 1)[1]
+        wrapper = getattr(module, name)
+
+        def run(*args, _name=name, _module=module, _wrapper=wrapper, **kwargs):
+            out = _wrapper(*args, **kwargs)
+            calls.append((_name, _module, args, kwargs, out))
+            return out
+        saved.append((module, name, wrapper))
+        setattr(module, name, run)
+    try:
+        yield calls
+    finally:
+        for module, name, wrapper in saved:
+            setattr(module, name, wrapper)
+
+
+def check_recorded_calls(torch, calls) -> None:
+    """Each recorded kernel call against its plain version on the same inputs:
+    every output within the phase-2 tolerance of its dtype, scaled by
+    max(1, max |plain|)."""
+    worst = {}
+    with torch.inference_mode():
+        for name, module, args, kwargs, out in calls:
+            want = getattr(module, name + "_plain")(*args, **kwargs)
+            errs = [(scaled_err(g, w), SCALED_TOL[str(g.dtype).replace("torch.", "")])
+                    for g, w in zip(flat_tensors(out), flat_tensors(want))]
+            n, err, bad = worst.get(name, (0, 0.0, 0))
+            worst[name] = (n + 1, max([err] + [e for e, _ in errs]),
+                           bad + sum(e > tol for e, tol in errs))
+    torch.cuda.synchronize()
+    log("kernel calls of a kernel-path prefill vs their plain versions on the same inputs: " +
+        ", ".join(f"{k}: {n} calls, worst scaled error {e:.3g}" for k, (n, e, _) in worst.items()))
+    failed = {k: bad for k, (_, _, bad) in worst.items() if bad}
+    if not worst or failed:
+        raise AssertionError(f"kernel calls disagree with their plain versions: {failed or 'none'}")
+
+def serve_path(torch, spec, work, n_requests, want_per_request):
+    """Deploy ``spec`` on the GPU, serve ``n_requests`` cold requests through the
+    ``unikernel`` driver (boot -> run -> exit) with the kernel launches of
+    each request equal to ``want_per_request(cfg, spec)``, time each boot
+    track alone, then, on the last executor's weights, hold every kernel
+    call of a kernel-path prefill against its plain version and the kernel
+    path's prefill logits against the plain path in float32. Returns
+    (deployment, launches of the requests)."""
+    from repro_torch import pytree
+    from repro_torch.core.boot import streamed_device_put
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.core.deploy import deploy
+    from repro_torch.core.drivers import UnikernelDriver
+    from repro_torch.core.metrics import Timeline, now
+    from repro_torch.core.snapshot import SnapshotStore
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    dep = deploy(spec, CompileCache(work / "programs"), SnapshotStore(work / "snapshots"),
+                 str(work), device="cuda")
+    m = dep.image.manifest
+    cfg = dep.model.cfg
+    log(f"deploy {spec.name}: {time.perf_counter() - t0:.1f} s [" +
+        " ".join(f"{k} {v:.2f}" for k, v in dep.build_s.items()) +
+        f"] | {m.param_count} params | program {m.program_bytes} B | snapshot "
+        f"{m.snapshot_bytes} B | "
+        f"{cfg.n_layers} layers d_model {cfg.d_model} heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} d_ff {cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype}")
+    tokens = torch.from_numpy(dep.example_tokens(seed=1)).cuda()
+    want = want_per_request(cfg, spec)
+    driver = UnikernelDriver()
+    ops.reset_launch_counts()
+    for r in range(n_requests):
+        before = ops.launch_counts()
+        tl = Timeline()
+        tl.t_start_begin = now()
+        ex = driver.start(dep, tl)
+        tl.t_exec_begin = now()
+        out = ex.run(tokens, timeline=tl)
+        tl.t_done = now()
+        after = ops.launch_counts()
+        grew = {k: after[k] - before[k] for k in after}
+        stages = " ".join(f"{k} {v:.3f}" for k, v in tl.stage_s.items())
+        nodes = f" | program graph {len(ex.program.graph.nodes)} nodes" if r == 0 else ""
+        log(f"request {r + 1}: boot [{stages}] t_boot_wall {tl.t_boot_wall:.3f} s | "
+            f"execution {tl.execution:.3f} s | launches {grew} | tokens {out.tolist()}{nodes}")
+        if grew != want:
+            raise AssertionError(f"launches per request {grew}, expected {want}")
+        if tuple(out.shape) != (spec.batch_size, spec.decode_steps) \
+                or out.dtype != torch.int32 or not bool(((out >= 0) &
+                                                        (out < cfg.vocab_size)).all()):
+            raise AssertionError(f"bad output {out.shape} {out.dtype}")
+        if r < n_requests - 1:
+            driver.finish(dep, ex)
+    launches = ops.launch_counts()
+
+    # each boot track alone, to see what the overlap hides (the last
+    # executor keeps its weights meanwhile)
+    key = dep.image.key
+    t0 = now()
+    host = dep.snapshots.load_host(key)
+    t1 = now()
+    dev = streamed_device_put(host, "cuda")
+    t2 = now()
+    del host, dev
+    t3 = now()
+    dep.load_program()
+    t4 = now()
+    log(f"tracks alone: weights restore_weights_host {t1 - t0:.3f} s + device_put "
+        f"{t2 - t1:.3f} s ({m.snapshot_bytes / (t2 - t1) / 1e9:.2f} GB/s) | program "
+        f"fetch+deserialize {t4 - t3:.3f} s")
+
+    # Same weights (the last executor's): the kernel path, the plain path,
+    # and the plain path in float32 as the reference. Two bf16 paths drift
+    # apart over the layers by bf16 rounding alone, so the gate is that the
+    # kernel path is no less accurate than the plain bf16 path: its relative
+    # L2 error against the f32 logits is at most twice the plain path's. A
+    # wrong kernel would be off by orders of magnitude, except where the
+    # stack loses the f32 logits in bf16 by itself (xlstm's 48 random-weight
+    # blocks): there the per-call check carries the kernels' correctness.
+    params = ex.params
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), dep.model.max_seq)
+    batch = {"tokens": tokens}
+    with torch.inference_mode(), recorded_kernel_calls(ops) as calls:
+        lk, _ = dep.model.prefill(params, batch, capacity=spec.prompt_len)
+    check_recorded_calls(torch, calls)
+    del calls
+    with torch.inference_mode():
+        with ops.impl_scope("plain"):
+            lp, _ = dep.model.prefill(params, batch, capacity=spec.prompt_len)
+            out_plain = dep.serve_fn(params, tokens)
+            params32 = pytree.tree_map(lambda t: t.float(), params)
+            l32, _ = model32.prefill(params32, batch, capacity=spec.prompt_len)
+            del params32
+    driver.finish(dep, ex)
+    lk, lp = lk.float(), lp.float()
+
+    err_k, err_p = rel_l2(lk, l32), rel_l2(lp, l32)
+    ak, ap = lk.argmax(-1), lp.argmax(-1)
+    gaps = [(lp[r, ap[r]] - lp[r, ak[r]]).item() for r in range(lp.shape[0]) if ak[r] != ap[r]]
+    log(f"prefill logits vs the f32 plain path: rel_l2 kernel path {err_k:.4g}, plain bf16 "
+        f"path {err_p:.4g} (gate: kernel <= 2 x plain) | kernel vs plain bf16: "
+        f"max_abs_err {(lk - lp).abs().max().item():.4g} (max |logit| "
+        f"{lp.abs().max().item():.4g}), rel_l2 {rel_l2(lk, lp):.4g} | first-token "
+        f"agreement {(ak == ap).float().mean().item():.3f} (plain-logit gap where they "
+        f"differ: {gaps}) | greedy-token agreement {(out_plain == out).float().mean().item():.3f}")
+    if not (bool(torch.isfinite(lk).all()) and err_k <= 2.0 * err_p):
+        raise AssertionError("kernel path's prefill logits are less accurate than the plain "
+                             "path's")
+    return dep, launches
+
+
 # ------------------------------------------------------------------------ main
 
 def main() -> int:
@@ -412,19 +647,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
-    from repro_torch import pytree
+    from repro_torch.configs import get_config, register
     from repro_torch.core.artifact import FunctionSpec
-    from repro_torch.core.boot import streamed_device_put
-    from repro_torch.core.compile_cache import CompileCache
-    from repro_torch.core.deploy import deploy
-    from repro_torch.core.drivers import UnikernelDriver
-    from repro_torch.core.metrics import Timeline, now
-    from repro_torch.core.snapshot import SnapshotStore
-    from repro_torch.kernels import _cuda, ops, ref
+    from repro_torch.kernels import _cuda, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm as mk
     from repro_torch.kernels import paged_decode_attention as pda
-    from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -469,6 +698,16 @@ def main() -> int:
                    (3, 8, 5, 8, 1, 64, [0, 40, 9], "bfloat16"),             # MQA, D=64
                    (4, 16, 6, 8, 2, 64, [96, 3, 0, 50], "float32"),         # GQA, D=64
                    (2, 4, 7, 4, 4, 32, [28, 13], "bfloat16")]
+    # B, S, H, Dk, Dv, dtype, i_scale, split; the first is xlstm-1.3b's prefill
+    mlstm_cases = [(4, 512, 4, 512, 1024, "bfloat16", 1.0, 0),
+                   (2, 100, 4, 512, 1024, "bfloat16", 1.0, 0),       # padding
+                   (2, 1, 4, 512, 1024, "bfloat16", 1.0, 0),         # S < chunk
+                   (2, 7, 4, 512, 1024, "bfloat16", 1.0, 0),
+                   (2, 512, 4, 512, 1024, "bfloat16", 1.0, 200),     # carried state
+                   (2, 150, 2, 512, 1024, "float32", 1.0, 64),
+                   (2, 130, 4, 32, 64, "float32", 1.0, 0),           # the reduced dims
+                   (2, 70, 4, 32, 64, "bfloat16", 1.0, 33),
+                   (2, 192, 4, 512, 1024, "bfloat16", 30.0, 0)]      # large input gates
     results = {}
     for name, check, cases in (
             ("flash_attention",
@@ -476,116 +715,51 @@ def main() -> int:
             ("decode_attention",
              lambda c, t: check_decode(torch, F, da, ref, gen, c, t), decode_cases),
             ("paged_decode_attention",
-             lambda c, t: check_paged(torch, F, pda, da, ref, gen, c, t), paged_cases)):
+             lambda c, t: check_paged(torch, F, pda, da, ref, gen, c, t), paged_cases),
+            ("mlstm", lambda c, t: check_mlstm(torch, mk, ref, gen, c, t), mlstm_cases)):
         rows = [check(c, i == 0) for i, c in enumerate(cases)]
         for r in rows:
             extra = "".join(f" {k} {r[k]}" for k in ("layout_bitwise", "vs_contiguous_bitwise",
-                                                     "vs_contiguous_max_abs_err") if k in r)
+                                                     "vs_contiguous_max_abs_err",
+                                                     "max_abs_err_C_n_m", "scaled_err_h",
+                                                     "scaled_err_C_n_m")
+                            if k in r)
             log(f"{name} {r['case']}: max_abs_err {r['max_abs_err']:.3g}{extra} "
                 f"{'ok' if r['ok'] else 'FAIL'}")
         main = rows[0]
+        library = "none (no single PyTorch call)" if main["library_ms"] is None \
+            else f"{main['library_ms']:.4f}"
         log(f"{name} at the path's shape: kernel_ms {main['ms']:.4f} plain_ms "
-            f"{main['plain_ms']:.4f} library_ms {main['library_ms']:.4f} bound_ms "
+            f"{main['plain_ms']:.4f} library_ms {library} bound_ms "
             f"{main['bound_ms']:.4f} ({main['bound_by']})")
         bad = [r["case"] for r in rows if not r["ok"]]
         if bad:
             raise AssertionError(f"{name} disagrees with its plain version on {bad}")
         results[name] = main
 
-    # ---- phase 3: the serve path, full width
-    spec = FunctionSpec(**SPEC)
+    register(LLAMA_ARCH)(lambda: dataclasses.replace(get_config("llama3.2-3b"),
+                                                     n_layers=LLAMA_LAYERS))
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        t0 = time.perf_counter()
-        dep = deploy(spec, CompileCache(work / "programs"), SnapshotStore(work / "snapshots"),
-                     str(work), device="cuda")
-        m = dep.image.manifest
-        cfg = dep.model.cfg
-        log(f"deploy {spec.name}: {time.perf_counter() - t0:.1f} s | {m.param_count} params | "
-            f"program {m.program_bytes} B | snapshot {m.snapshot_bytes} B | "
-            f"{cfg.n_layers} layers d_model {cfg.d_model} heads {cfg.n_heads}/"
-            f"{cfg.n_kv_heads} d_ff {cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype}")
-        tokens = torch.from_numpy(dep.example_tokens(seed=1)).cuda()
-        want = {"flash_attention": cfg.n_layers,
-                "decode_attention": cfg.n_layers * spec.decode_steps,
-                "paged_decode_attention": 0}
-        driver = UnikernelDriver()
-        ops.reset_launch_counts()
-        for r in range(N_REQUESTS):
-            before = ops.launch_counts()
-            tl = Timeline()
-            tl.t_start_begin = now()
-            ex = driver.start(dep, tl)
-            tl.t_exec_begin = now()
-            out = ex.run(tokens, timeline=tl)
-            tl.t_done = now()
-            after = ops.launch_counts()
-            grew = {k: after[k] - before[k] for k in after}
-            stages = " ".join(f"{k} {v:.3f}" for k, v in tl.stage_s.items())
-            log(f"request {r + 1}: boot [{stages}] t_boot_wall {tl.t_boot_wall:.3f} s | "
-                f"execution {tl.execution:.3f} s | launches {grew} | tokens {out.tolist()}")
-            if grew != want:
-                raise AssertionError(f"launches per request {grew}, expected {want}")
-            if tuple(out.shape) != (spec.batch_size, spec.decode_steps) \
-                    or out.dtype != torch.int32 or not bool(((out >= 0) &
-                                                            (out < cfg.vocab_size)).all()):
-                raise AssertionError(f"bad output {out.shape} {out.dtype}")
-            if r < N_REQUESTS - 1:
-                driver.finish(dep, ex)
-        launches = ops.launch_counts()
-
-        # each boot track alone, to see what the overlap hides (the last
-        # executor keeps its weights meanwhile)
-        key = dep.image.key
-        t0 = now()
-        host = dep.snapshots.load_host(key)
-        t1 = now()
-        dev = streamed_device_put(host, "cuda")
-        t2 = now()
-        del host, dev
-        t3 = now()
-        dep.load_program()
-        t4 = now()
-        log(f"tracks alone: weights restore_weights_host {t1 - t0:.3f} s + device_put "
-            f"{t2 - t1:.3f} s ({m.snapshot_bytes / (t2 - t1) / 1e9:.2f} GB/s) | program "
-            f"fetch+deserialize {t4 - t3:.3f} s")
-
-        # Same weights (the last executor's): the kernel path, the plain path,
-        # and the plain path in float32 as the reference. Two bf16 paths drift
-        # apart over 28 layers by bf16 rounding alone, so the gate is that the
-        # kernel path is no less accurate than the plain bf16 path: its
-        # relative L2 error against the f32 logits is at most twice the plain
-        # path's. A wrong kernel would be off by orders of magnitude.
-        params = ex.params
-        model32 = build_model(dataclasses.replace(cfg, dtype="float32"), dep.model.max_seq)
-        batch = {"tokens": tokens}
-        with torch.inference_mode():
-            lk, _ = dep.model.prefill(params, batch, capacity=spec.prompt_len)
-            with ops.impl_scope("plain"):
-                lp, _ = dep.model.prefill(params, batch, capacity=spec.prompt_len)
-                out_plain = dep.serve_fn(params, tokens)
-                params32 = pytree.tree_map(lambda t: t.float(), params)
-                l32, _ = model32.prefill(params32, batch, capacity=spec.prompt_len)
-                del params32
-        driver.finish(dep, ex)
-        lk, lp = lk.float(), lp.float()
-
-        err_k, err_p = rel_l2(lk, l32), rel_l2(lp, l32)
-        ak, ap = lk.argmax(-1), lp.argmax(-1)
-        gaps = [(lp[r, ap[r]] - lp[r, ak[r]]).item() for r in range(lp.shape[0]) if ak[r] != ap[r]]
-        log(f"prefill logits vs the f32 plain path: rel_l2 kernel path {err_k:.4g}, plain bf16 "
-            f"path {err_p:.4g} (gate: kernel <= 2 x plain) | kernel vs plain bf16: "
-            f"max_abs_err {(lk - lp).abs().max().item():.4g} (max |logit| "
-            f"{lp.abs().max().item():.4g}), rel_l2 {rel_l2(lk, lp):.4g} | first-token "
-            f"agreement {(ak == ap).float().mean().item():.3f} (plain-logit gap where they "
-            f"differ: {gaps}) | greedy-token agreement {(out_plain == out).float().mean().item():.3f}")
-        if not (bool(torch.isfinite(lk).all()) and err_k <= 2.0 * err_p):
-            raise AssertionError("kernel path's prefill logits are less accurate than the plain "
-                                 "path's")
-        del params, lk, lp, l32
-
+        # ---- phase 3: the llama serve path, full width
+        dep, launches = serve_path(
+            torch, FunctionSpec(**SPEC), work / "llama", LLAMA_REQUESTS,
+            lambda cfg, spec: {"flash_attention": cfg.n_layers,
+                               "decode_attention": cfg.n_layers * spec.decode_steps,
+                               "paged_decode_attention": 0, "mlstm": 0})
         # ---- phase 3b: the decode tier on the same deployment
         launches_3b = decode_tier(torch, dep)
+        del dep
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(work / "llama", ignore_errors=True)
+
+        # ---- phase 3c: the xlstm serve path, full width
+        _, launches_3c = serve_path(
+            torch, FunctionSpec(**XLSTM_SPEC), work / "xlstm", XLSTM_REQUESTS,
+            lambda cfg, spec: {"flash_attention": 0, "decode_attention": 0,
+                               "paged_decode_attention": 0,
+                               "mlstm": cfg.n_layers - cfg.n_layers // cfg.ssm.slstm_every})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -596,10 +770,13 @@ def main() -> int:
                                     "src/repro/kernels/decode_attention.py:35"),
                "paged_decode_attention": (
                    "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-                   "src/repro/kernels/paged_decode_attention.py:40")}
+                   "src/repro/kernels/paged_decode_attention.py:40"),
+               "mlstm": ("src/repro_torch/kernels/csrc/mlstm.cu",
+                         "src/repro/kernels/mlstm.py:31")}
     kernels = []
     for name, r in results.items():
-        by_path = {"serve": launches[name], "decode_tier": launches_3b[name]}
+        by_path = {"serve": launches[name], "decode_tier": launches_3b[name],
+                   "xlstm_serve": launches_3c[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],

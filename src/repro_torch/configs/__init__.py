@@ -1,5 +1,6 @@
 """Architecture registry of the port. Importing this package registers the
-architectures ported so far (the uniform dense stack of ``llama3.2-3b``)."""
+architectures ported so far: the uniform dense stack of ``llama3.2-3b``
+and the mLSTM + sLSTM stack of ``xlstm-1.3b``."""
 from repro_torch.configs.base import (
     ArchConfig,
     MoEConfig,
@@ -9,4 +10,4 @@ from repro_torch.configs.base import (
     register,
 )
 
-from repro_torch.configs import llama3_2_3b
+from repro_torch.configs import llama3_2_3b, xlstm_1_3b

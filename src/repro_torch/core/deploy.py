@@ -37,7 +37,7 @@ from repro_torch.core.metrics import now
 from repro_torch.core.snapshot import SnapshotStore
 from repro_torch.models import build_model
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import split_layers
+from repro_torch.models.transformer import split_cache, split_layers
 from repro_torch import pytree
 
 
@@ -58,6 +58,7 @@ class ServeProgram(nn.Module):
     def forward(self, params, tokens):
         params = {**params, "stack": split_layers(params["stack"])}
         logits, cache = self.model.prefill(params, {"tokens": tokens}, capacity=self.capacity)
+        cache = {**cache, "inner": split_cache(self.model.cfg, cache["inner"])}
         toks = []
         for _ in range(self.decode_steps):
             tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
@@ -151,6 +152,7 @@ class Deployment:
     snapshots: SnapshotStore
     device: torch.device
     build_seconds: float
+    build_s: Dict[str, float] = dataclasses.field(default_factory=dict)  # seconds by stage
     _decode_lock: threading.Lock = dataclasses.field(default_factory=threading.Lock,
                                                      repr=False)
     _decode_bundle: Optional[DecodeBundle] = dataclasses.field(default=None, repr=False)
@@ -266,7 +268,15 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
     """Build the image of ``spec`` for ``device``. ``work_dir`` is where the
     JAX package writes its generic checkpoint, which this slice does not
     build; it is kept so the two ``deploy`` signatures match."""
-    t_begin = now()
+    t_begin = t = now()
+    times: Dict[str, float] = {}
+
+    def lap(stage: str) -> None:
+        nonlocal t
+        t1 = now()
+        times[stage] = t1 - t
+        t = t1
+
     device = torch.device(device)
     cfg = get_config(spec.arch)
     if spec.reduced:
@@ -276,24 +286,32 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
     serve_fn = make_serve_fn(model, spec)
     params = model.init(torch.Generator(device=device).manual_seed(spec.seed))
     key = spec.cache_key(device)
+    synchronize(device)
+    lap("init")
 
     # 1) the program -> compile cache ("unikernel image build")
     probe_tokens = torch.zeros((spec.batch_size, spec.prompt_len), dtype=torch.int32,
                                device=device)
     exported = slim(torch.export.export(serve_fn, (params, probe_tokens)))
+    lap("export")
     program_bytes = cache.put_program(key, exported)
+    lap("save")
     # deploy-time verification: boot the saved image once and run it
+    program = cache.load_program(key)
+    lap("load")
     with torch.inference_mode():
-        booted = cache.load_program(key)(params, probe_tokens)
+        booted = program(params, probe_tokens)
         eager = serve_fn(params, probe_tokens)
     synchronize(device)
     if booted.shape != eager.shape or not torch.equal(booted, eager):
         raise RuntimeError(
             f"deploy {spec.name}: the saved program's tokens differ from the eager "
             f"program's on probe tokens ({booted.tolist()} vs {eager.tolist()})")
+    lap("verify")
 
     # 2) pre-laid-out snapshot
     snapshot_bytes = snapshots.save(key, params)
+    lap("snapshot")
     build_seconds = now() - t_begin
     manifest = ImageManifest(
         key=key, function=spec.name,
@@ -305,4 +323,4 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
     cache.put_manifest(key, manifest)
     return Deployment(spec=spec, image=ExecutorImage(manifest=manifest, spec=spec),
                       model=model, serve_fn=serve_fn, cache=cache, snapshots=snapshots,
-                      device=device, build_seconds=build_seconds)
+                      device=device, build_seconds=build_seconds, build_s=times)

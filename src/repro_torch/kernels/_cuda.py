@@ -129,6 +129,8 @@ def library() -> ctypes.CDLL:
             lib.repro_decode_attention.restype = i32
             lib.repro_paged_decode_attention.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
             lib.repro_paged_decode_attention.restype = i32
+            lib.repro_mlstm.argtypes = [ptr] * 12 + [i32] * 6 + [ctypes.c_float, ptr]
+            lib.repro_mlstm.restype = i32
             lib.repro_cuda_error_string.argtypes = [i32]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,11 +1,20 @@
 """Dispatch between the hand-written kernels and their plain versions.
 
 Port of ``repro.kernels.ops``. The model calls :func:`attention`,
-:func:`decode_attention` and :func:`paged_decode_attention`; each is a
-``torch.library`` custom op (``repro_torch::flash_attention``,
-``repro_torch::decode_attention``, ``repro_torch::paged_decode_attention``)
-with a fake implementation, so ``torch.export`` records it as one opaque node
-and the exported programs dispatch at run time.
+:func:`decode_attention`, :func:`paged_decode_attention` and :func:`mlstm`;
+each is a ``torch.library`` custom op (``repro_torch::flash_attention``,
+``repro_torch::decode_attention``, ``repro_torch::paged_decode_attention``,
+``repro_torch::mlstm``) with a fake implementation, so ``torch.export``
+records it as one opaque node and the exported programs dispatch at run time.
+
+:func:`slstm_scan` (``repro_torch::slstm_scan``) and :func:`mlstm_step`
+(``repro_torch::mlstm_step``) are custom ops of the same kind around code
+that is not a kernel: the sLSTM time loop, which the JAX package runs as a
+``lax.scan``, and the mLSTM decode step, which it runs as plain ``jnp`` (the
+op updates the state in place). They run the plain versions on any device
+and count no launches; being one node each, they keep a prompt's hundreds of
+sLSTM steps and each decode step's recurrent arithmetic out of the exported
+graph, whose size sets the cold start's deserialize time.
 
 The route depends on the tensors' device, never on probing the hardware:
 
@@ -24,11 +33,13 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mlstm as mk
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import ref
 
@@ -79,13 +90,13 @@ def launch_counts() -> dict:
     """Kernel launches so far, by kernel name."""
     return {"flash_attention": fa.LAUNCHES.count,
             "decode_attention": da.LAUNCHES.count,
-            "paged_decode_attention": pda.LAUNCHES.count}
+            "paged_decode_attention": pda.LAUNCHES.count,
+            "mlstm": mk.LAUNCHES.count}
 
 
 def reset_launch_counts() -> None:
-    fa.LAUNCHES.reset()
-    da.LAUNCHES.reset()
-    pda.LAUNCHES.reset()
+    for kernel in (fa, da, pda, mk):
+        kernel.LAUNCHES.reset()
 
 
 # ------------------------------------------------------------------ custom ops
@@ -130,6 +141,57 @@ def _(q, k_pages, v_pages, page_table, lengths):
     return torch.empty_like(q)
 
 
+@torch.library.custom_op("repro_torch::mlstm", mutates_args=())
+def _mlstm_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_raw: torch.Tensor,
+              f_raw: torch.Tensor, C: Optional[torch.Tensor], n: Optional[torch.Tensor],
+              m: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    state = None if C is None else (C, n, m)
+    if use_kernel(q.device):
+        h, (C, n, m) = mk.mlstm(q, k, v, i_raw, f_raw, state)
+    else:
+        h, (C, n, m) = ref.mlstm_chunked(q, k, v, i_raw, f_raw, state=state)
+    return h, C, n, m
+
+
+@_mlstm_op.register_fake
+def _(q, k, v, i_raw, f_raw, C, n, m):
+    B, S, H, Dk = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (q.new_empty((B, S, H, v.shape[-1])), torch.empty((B, H, Dk, v.shape[-1]), **f32),
+            torch.empty((B, H, Dk), **f32), torch.empty((B, H), **f32))
+
+
+@torch.library.custom_op("repro_torch::mlstm_step", mutates_args=("C", "n", "m"))
+def _mlstm_step_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i: torch.Tensor,
+                   f: torch.Tensor, C: torch.Tensor, n: torch.Tensor,
+                   m: torch.Tensor) -> torch.Tensor:
+    h, new = ref.mlstm_step(q, k, v, i, f, (C, n, m))
+    for old, val in zip((C, n, m), new):
+        old.copy_(val)
+    return h
+
+
+@_mlstm_step_op.register_fake
+def _(q, k, v, i, f, C, n, m):
+    return q.new_empty(v.shape)
+
+
+@torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
+def _slstm_scan_op(gates: torch.Tensor, r: torch.Tensor, b_in: torch.Tensor,
+                   c: torch.Tensor, n: torch.Tensor, h: torch.Tensor,
+                   m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                             torch.Tensor, torch.Tensor]:
+    return ref.slstm_scan(gates, r, b_in, c, n, h, m)
+
+
+@_slstm_scan_op.register_fake
+def _(gates, r, b_in, c, n, h, m):
+    B, S = gates.shape[:2]
+    return (c.new_empty((B, S, c.shape[-1])), torch.empty_like(c), torch.empty_like(n),
+            torch.empty_like(h), torch.empty_like(m))
+
+
 # ------------------------------------------------------------------ entry points
 
 def attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
@@ -153,3 +215,26 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths):
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device).expand(B)
     return torch.ops.repro_torch.paged_decode_attention(
         q, k_pages, v_pages, page_table.to(torch.int32).contiguous(), lengths.contiguous())
+
+
+def mlstm(q, k, v, i_raw, f_raw, state=None):
+    """Chunkwise mLSTM. q, k: [B,S,H,Dk]; v: [B,S,H,Dv]; i_raw, f_raw: [B,S,H];
+    state: optional (C [B,H,Dk,Dv], n [B,H,Dk], m [B,H]) to start from.
+    Returns (h [B,S,H,Dv] in q's dtype, (C, n, m) in f32)."""
+    C, n, m = (None, None, None) if state is None else state
+    h, C, n, m = torch.ops.repro_torch.mlstm(q.contiguous(), k.contiguous(), v.contiguous(),
+                                             i_raw, f_raw, C, n, m)
+    return h, (C, n, m)
+
+
+def slstm_scan(gates, r, b_in, c, n, h, m):
+    """The sLSTM over a sequence. gates: [B,S,4d]; r: [H,dh,4dh]; b_in: [4d]
+    f32; c, n, h, m: [B,d] f32 -> (hs [B,S,d] f32, c, n, h, m)."""
+    return torch.ops.repro_torch.slstm_scan(gates, r, b_in, c, n, h, m)
+
+
+def mlstm_step(q_t, k_t, v_t, i_t, f_t, state):
+    """One mLSTM decode step (``ref.mlstm_step``), the state updated in place.
+    q_t, k_t: [B,H,Dk]; v_t: [B,H,Dv]; i_t, f_t: [B,H]; state (C, n, m) f32
+    -> h [B,H,Dv] in q_t's dtype."""
+    return torch.ops.repro_torch.mlstm_step(q_t, k_t, v_t, i_t, f_t, *state)

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the attention kernels (port of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``).
 
-The same chunked online-softmax math as the JAX references, with f32
-accumulation. They are the port's oracle: the CPU path of the model runs them,
+The same chunked online-softmax and chunkwise-mLSTM math as the JAX
+references, with f32 accumulation, and the sLSTM cell the JAX package scans
+with ``lax.scan``. They are the port's oracle: the CPU path of the model runs them,
 the tests hold them against the JAX package, and ``chip_smoke.py`` holds each
 hand-written kernel against them on the card. The scans over blocks become
 Python loops.
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -158,3 +160,142 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     k = k_pages[table].reshape(B, max_pages * page_size, Hkv, D)
     v = v_pages[table].reshape(B, max_pages * page_size, Hkv, D)
     return decode_attention(q, k, v, lengths, block_kv=block_kv)
+
+
+# ========================================================================== mLSTM
+
+def _pad_steps(x, pad: int, value: float = 0.0):
+    """x [B, S, ...] with ``pad`` steps of ``value`` (in x's dtype) appended."""
+    if not pad:
+        return x
+    return torch.cat([x, x.new_full((x.shape[0], pad, *x.shape[2:]), value)], dim=1)
+
+
+def mlstm_chunked(q, k, v, i_raw, f_raw, state=None, *, block: int = 64):
+    """Chunkwise-parallel stabilised mLSTM (xLSTM [arXiv:2405.04517] parallel form).
+
+    q, k: [B, S, H, Dk]; v: [B, S, H, Dv]; i_raw, f_raw: [B, S, H].
+    state: optional (C [B,H,Dk,Dv], n [B,H,Dk], m [B,H]).
+    Returns (h [B,S,H,Dv] in q's dtype, (C, n, m) in f32).
+    Gates: log f = logsigmoid(f_raw) (per step), log i = i_raw. Padded steps
+    take i = NEG_INF (no input) and f = 60 (logsigmoid(60) ~ 0: keep the
+    state), as in the JAX reference.
+    """
+    B, S, H, Dk = q.shape
+    Dv = v.shape[-1]
+    block = min(block, S)
+    scale = _scale(Dk)
+    pad = (-S) % block
+    qp, kp, vp = (_pad_steps(t, pad) for t in (q, k, v))
+    ip = _pad_steps(i_raw, pad, NEG_INF)
+    fp = _pad_steps(f_raw, pad, 60.0)
+    dev = q.device
+    if state is None:
+        C = torch.zeros((B, H, Dk, Dv), dtype=torch.float32, device=dev)
+        n = torch.zeros((B, H, Dk), dtype=torch.float32, device=dev)
+        m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=dev)
+    else:
+        C, n, m = (s.float() for s in state)
+    causal = torch.tril(torch.ones((block, block), dtype=torch.bool, device=dev))
+    hs = []
+    for start in range(0, qp.shape[1], block):
+        sl = slice(start, start + block)
+        qb, kb, vb = qp[:, sl].float(), kp[:, sl].float(), vp[:, sl].float()
+        cum = torch.cumsum(F.logsigmoid(fp[:, sl].float()), dim=1)       # [B,blk,H]
+        logi = ip[:, sl].float()
+        # per-position stabiliser: m_i = max(F_i + m, F_i + max_{j<=i}(logi_j - F_j))
+        gmax = torch.cummax(logi - cum, dim=1).values
+        m_i = cum + torch.maximum(m[:, None], gmax)
+        qf = qb * scale
+        # inter-chunk: q_i . C * exp(F_i + m - m_i)
+        w_inter = torch.exp(cum + m[:, None] - m_i)                      # [B,blk,H] <= 1
+        inter = torch.einsum("bthk,bhkv->bthv", qf, C) * w_inter[..., None]
+        n_inter = n[:, None] * w_inter[..., None]                        # [B,blk,H,Dk]
+        # intra-chunk: decay(i,j) = exp(F_i - F_j + logi_j - m_i), j <= i
+        dmat = cum[:, :, None] - cum[:, None, :] + logi[:, None, :, :] - m_i[:, :, None]
+        w = torch.exp(torch.where(causal[None, :, :, None], dmat, NEG_INF))
+        sw = torch.einsum("bihk,bjhk->bijh", qf, kb) * w
+        intra = torch.einsum("bijh,bjhv->bihv", sw, vb)
+        n_intra = torch.einsum("bijh,bjhk->bihk", w, kb)
+        denom = torch.abs(torch.einsum("bthk,bthk->bth", n_inter + n_intra, qf))
+        denom = torch.maximum(denom, torch.exp(-m_i))
+        hs.append((inter + intra) / denom[..., None])
+        # carry to the end of the chunk
+        cum_c = cum[:, -1]                                               # [B,H]
+        m_new = cum_c + torch.maximum(m, gmax[:, -1])
+        w_old = torch.exp(cum_c + m - m_new)
+        kw = kb * torch.exp(cum_c[:, None] - cum + logi - m_new[:, None])[..., None]
+        C = C * w_old[..., None, None] + torch.einsum("bjhk,bjhv->bhkv", kw, vb)
+        n = n * w_old[..., None] + kw.sum(dim=1)
+        m = m_new
+    h = torch.cat(hs, dim=1)[:, :S].to(q.dtype)
+    return h.contiguous(), (C.contiguous(), n.contiguous(), m.contiguous())
+
+
+def mlstm_step(q_t, k_t, v_t, i_t, f_t, state):
+    """One decode step. q_t, k_t: [B,H,Dk]; v_t: [B,H,Dv]; i_t, f_t: [B,H];
+    state (C, n, m) -> (h [B,H,Dv] in q_t's dtype, (C, n, m) in f32)."""
+    C, n, m = (s.float() for s in state)
+    Dk = q_t.shape[-1]
+    logf = F.logsigmoid(f_t.float())
+    logi = i_t.float()
+    m_new = torch.maximum(logf + m, logi)
+    wf = torch.exp(logf + m - m_new)
+    wi = torch.exp(logi - m_new)
+    kf = k_t.float()
+    C_new = wf[..., None, None] * C + wi[..., None, None] * (
+        kf[..., :, None] * v_t.float()[..., None, :])
+    n_new = wf[..., None] * n + wi[..., None] * kf
+    qf = q_t.float() / float(np.sqrt(np.float32(Dk)))
+    num = torch.einsum("bhkv,bhk->bhv", C_new, qf)
+    denom = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n_new, qf)),
+                          torch.exp(-m_new))
+    return (num / denom[..., None]).to(q_t.dtype), (C_new, n_new, m_new)
+
+
+def mlstm_recurrent(q, k, v, i_raw, f_raw, state=None):
+    """Sequential oracle for :func:`mlstm_chunked`: one :func:`mlstm_step` per step."""
+    B, S, H, Dk = q.shape
+    Dv = v.shape[-1]
+    if state is None:
+        state = (torch.zeros((B, H, Dk, Dv), dtype=torch.float32, device=q.device),
+                 torch.zeros((B, H, Dk), dtype=torch.float32, device=q.device),
+                 torch.full((B, H), NEG_INF, dtype=torch.float32, device=q.device))
+    hs = []
+    for t in range(S):
+        h, state = mlstm_step(q[:, t], k[:, t], v[:, t], i_raw[:, t], f_raw[:, t], state)
+        hs.append(h)
+    return torch.stack(hs, dim=1), state
+
+
+# ========================================================================== sLSTM
+
+def slstm_cell(g_t, r, b_in, carry):
+    """One sLSTM step. g_t: [B,4d] input pre-activations; r: [H,dh,4dh]
+    recurrent weights; b_in: [4d] f32; carry (c, n, h, m): [B,d] f32."""
+    c, n, h, m = carry
+    B = g_t.shape[0]
+    H, dh = r.shape[0], r.shape[1]
+    d = H * dh
+    rec = torch.einsum("bhd,hdf->bhf", h.reshape(B, H, dh).to(r.dtype), r)
+    g = g_t.float() + rec.reshape(B, 4 * d).float() + b_in
+    zt, it, ft, ot = torch.split(g, d, dim=-1)
+    log_f = F.logsigmoid(ft)
+    m_new = torch.maximum(log_f + m, it)
+    i = torch.exp(it - m_new)
+    f = torch.exp(log_f + m - m_new)
+    c_new = f * c + i * torch.tanh(zt)
+    n_new = torch.clamp(f * n + i, min=1e-6)
+    h_new = torch.sigmoid(ot) * (c_new / n_new)
+    return c_new, n_new, h_new, m_new
+
+
+def slstm_scan(gates, r, b_in, c, n, h, m):
+    """The sLSTM over a sequence, one :func:`slstm_cell` per step.
+    gates: [B,S,4d] -> (hs [B,S,d] f32, c, n, h, m)."""
+    carry = (c, n, h, m)
+    hs = []
+    for t in range(gates.shape[1]):
+        carry = slstm_cell(gates[:, t], r, b_in, carry)
+        hs.append(carry[2])
+    return (torch.stack(hs, dim=1), *carry)

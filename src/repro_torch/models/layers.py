@@ -63,6 +63,10 @@ def ones_init() -> Initializer:
     return lambda gen, shape, dtype: torch.ones(shape, dtype=dtype, device=gen.device)
 
 
+def const_init(value: float) -> Initializer:
+    return lambda gen, shape, dtype: torch.full(shape, value, dtype=dtype, device=gen.device)
+
+
 def dense_spec(d_in: int, d_out: int, axes: Tuple[Optional[str], ...],
                dtype, *, stack: Tuple[int, ...] = (), scale: float = 1.0) -> ParamSpec:
     """Weight [*, d_in, d_out] with 1/sqrt(d_in) init (stack axes lead)."""
@@ -94,14 +98,9 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor], eps: float = 1e-6)
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optional[torch.Tensor],
                eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
-    mean = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    if weight is not None:
-        y = y * weight.float()
-    if bias is not None:
-        y = y + bias.float()
+    """The JAX package's f32 layer norm (biased variance), as one op."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), None if weight is None else weight.float(),
+                     None if bias is None else bias.float(), eps)
     return y.to(x.dtype)
 
 

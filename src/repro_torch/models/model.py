@@ -15,8 +15,8 @@ from repro_torch.models.layers import (
     norm_specs,
 )
 from repro_torch.models.transformer import (
-    make_positions, stack_decode_paged, stack_page_pool_specs, uniform_cache_specs,
-    uniform_decode, uniform_forward, uniform_specs,
+    make_positions, stack_cache_specs, stack_decode, stack_decode_paged, stack_forward,
+    stack_page_pool_specs, stack_specs,
 )
 
 
@@ -30,7 +30,7 @@ class Model:
         dtype = torch_dtype(self.cfg.dtype)
         return {
             "embed": embedding_specs(self.cfg, dtype, self.max_seq),
-            "stack": uniform_specs(self.cfg, dtype),
+            "stack": stack_specs(self.cfg, dtype),
             "final": norm_specs(self.cfg, dtype),
         }
 
@@ -45,19 +45,20 @@ class Model:
     # ----------------------------------------------------------------- prefill
     def prefill(self, params, batch: Dict, capacity: Optional[int] = None):
         """tokens [B, S] -> (last-position logits [B, V], cache) with the
-        cache's K/V zero-padded to ``capacity`` positions."""
+        cache's K/V zero-padded to ``capacity`` positions (a recurrent
+        stack's state has no position axis)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         capacity = capacity or S
         positions = make_positions(self.cfg, B, S, device=tokens.device)
         x = embed_tokens(self.cfg, params["embed"], tokens)
-        x, inner = uniform_forward(self.cfg, params["stack"], x, positions, "prefill")
+        x, inner = stack_forward(self.cfg, params["stack"], x, positions, "prefill")
         logits = self._head(params, x[:, -1:])[:, 0]
         return logits, {"inner": self._pad_cache(inner, B, capacity), "pos": S}
 
     def _pad_cache(self, inner, batch: int, capacity: int):
         target = pytree.tree_map(lambda s: s.shape,
-                                 uniform_cache_specs(self.cfg, batch, capacity),
+                                 stack_cache_specs(self.cfg, batch, capacity),
                                  is_leaf=is_spec)
 
         def pad(leaf, tshape):
@@ -71,13 +72,14 @@ class Model:
 
     # ------------------------------------------------------------------ decode
     def decode(self, params, cache, token: torch.Tensor):
-        """token: [B, 1] int -> (logits [B, V], cache'). The K/V tensors of
-        ``cache`` are written in place; ``pos`` advances by one."""
+        """token: [B, 1] int -> (logits [B, V], cache'). The tensors of
+        ``cache`` (K/V, or the recurrent state) are written in place; ``pos``
+        advances by one."""
         pos = cache["pos"]
         if isinstance(pos, torch.Tensor) and pos.dim() == 0:
             pos = int(pos)
         x = embed_tokens(self.cfg, params["embed"], token, pos_offset=pos)
-        x, inner = uniform_decode(self.cfg, params["stack"], x, cache["inner"], pos)
+        x, inner = stack_decode(self.cfg, params["stack"], x, cache["inner"], pos)
         logits = self._head(params, x)[:, 0]
         return logits, {"inner": inner, "pos": pos + 1}
 
@@ -110,7 +112,7 @@ class Model:
     # ------------------------------------------------------------------- cache
     def cache_specs(self, batch: int, capacity: int):
         return {
-            "inner": uniform_cache_specs(self.cfg, batch, capacity),
+            "inner": stack_cache_specs(self.cfg, batch, capacity),
             "pos": ParamSpec((), torch.int32, (),
                              lambda gen, s, d: torch.zeros(s, dtype=d, device=gen.device)),
         }

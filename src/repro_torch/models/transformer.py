@@ -1,9 +1,11 @@
-"""Layer stack of the uniform dense family (port of ``repro.models.transformer``).
+"""Layer stacks of the uniform dense and xLSTM families (port of
+``repro.models.transformer``).
 
-The JAX package scans over the stacked ``[L, ...]`` layer leaves; here a
-Python loop walks views of the same leaves (``leaf[i]`` is a view, nothing is
-copied). The other stack families (MoE, jamba, xlstm, encoder-decoder) are
-later slices and raise ``NotImplementedError``.
+The JAX package scans over the stacked ``[L, ...]`` (xLSTM: ``[P, ...]``
+periods) layer leaves; here a Python loop walks views of the same leaves
+(``leaf[i]`` is a view, nothing is copied). The ``stack_*`` dispatchers pick
+the family; the other families (MoE, jamba, encoder-decoder, the vision
+frontend) are later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 from repro_torch import pytree
 from repro_torch.dtypes import torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     ParamSpec, apply_mlp, apply_norm, mlp_specs, norm_specs, positional_tables,
 )
@@ -21,20 +24,33 @@ def _slice(tree, i: int):
     return pytree.tree_map(lambda a: a[i], tree)
 
 
+def _split(tree) -> list:
+    """A stacked tree cut along its leading axis into a list of views."""
+    return [_slice(tree, i) for i in range(pytree.leaves(tree)[0].shape[0])]
+
+
 def split_layers(sp) -> dict:
     """``sp`` with its stacked ``layers`` leaves cut into a list of per-layer
-    views (no copy). The layer loops take either form; a traced program that
-    runs many passes cuts once instead of once per pass."""
+    views (no copy); for the xLSTM stack also each period's blocks. The layer
+    loops take either form; a traced program that runs many passes cuts once
+    instead of once per pass."""
     layers = sp["layers"]
     if isinstance(layers, list):
         return sp
-    n = pytree.leaves(layers)[0].shape[0]
-    return {**sp, "layers": [_slice(layers, i) for i in range(n)]}
+    per = _split(layers)
+    if "mlstm" in layers:                           # xLSTM periods: [P, period, ...]
+        per = [{**pp, "ln": _split(pp["ln"]), "mlstm": _split(pp["mlstm"])} for pp in per]
+    return {**sp, "layers": per}
 
 
 def _layer(sp, i: int):
     layers = sp["layers"]
     return layers[i] if isinstance(layers, list) else _slice(layers, i)
+
+
+def _block(tree, i: int):
+    """Block ``i`` of a period's ``ln`` / ``mlstm`` (stacked, or split)."""
+    return tree[i] if isinstance(tree, list) else _slice(tree, i)
 
 
 def _zeros_spec(shape, dtype, axes):
@@ -174,3 +190,118 @@ def stack_decode_paged(cfg, sp, x_t, k_pages, v_pages, page_table, pos):
 def stack_page_pool_specs(cfg, n_pages: int, page_size: int):
     _require_paged(cfg)
     return uniform_page_pool_specs(cfg, n_pages, page_size)
+
+
+# ================================================================= xlstm stack
+
+def _xlstm_layout(cfg):
+    """(period, P): P periods of (period - 1) mLSTM blocks and one sLSTM block."""
+    period = min(cfg.ssm.slstm_every or cfg.n_layers, cfg.n_layers)
+    return period, cfg.n_layers // period
+
+
+def xlstm_specs(cfg, dtype):
+    period, P = _xlstm_layout(cfg)
+    return {"layers": {
+        "ln": norm_specs(cfg, dtype, stack=(P, period)),
+        "mlstm": ssm.mlstm_specs(cfg, dtype, stack=(P, period - 1)),
+        "slstm": ssm.slstm_specs(cfg, dtype, stack=(P,)),
+    }}
+
+
+def xlstm_forward(cfg, sp, x, mode: str):
+    """Returns (x, cache); cache = {"mlstm": {C, n, m, conv} stacked
+    [P, period-1, ...], "slstm": {c, n, h, m} stacked [P, ...]} when mode ==
+    "prefill", else None."""
+    period, P = _xlstm_layout(cfg)
+    periods = []
+    for p_i in range(P):
+        pp = _layer(sp, p_i)
+        m_states, s_state = [], None
+        for i in range(period):
+            h = apply_norm(cfg, _block(pp["ln"], i), x)
+            if i == period - 1:
+                a, s_state = ssm.slstm_forward(cfg, pp["slstm"], h)
+            else:
+                a, m_st = ssm.mlstm_forward(cfg, _block(pp["mlstm"], i), h)
+                m_states.append(m_st)
+            x = x + a
+        if mode == "prefill":
+            periods.append((m_states, s_state))
+    if mode != "prefill":
+        return x, None
+    cache = {
+        "mlstm": {key: torch.stack([torch.stack([st[j] for st in m_states])
+                                    for m_states, _ in periods])
+                  for j, key in enumerate(("C", "n", "m", "conv"))},
+        "slstm": {key: torch.stack([s_state[j] for _, s_state in periods])
+                  for j, key in enumerate(("c", "n", "h", "m"))},
+    }
+    return x, cache
+
+
+def xlstm_decode(cfg, sp, x_t, cache):
+    """One decode step through every block; ``cache`` (as prefill returns it,
+    or as :func:`split_cache` cuts it) is updated in place and returned."""
+    period, P = _xlstm_layout(cfg)
+    cm, cs = cache["mlstm"], cache["slstm"]
+    for p_i in range(P):
+        pp = _layer(sp, p_i)
+        for i in range(period - 1):
+            h = apply_norm(cfg, _block(pp["ln"], i), x_t)
+            st = tuple(cm[key][p_i][i] for key in ("C", "n", "m", "conv"))
+            a, st2 = ssm.mlstm_decode_step(cfg, _block(pp["mlstm"], i), h, st)
+            st[3].copy_(st2[3])                     # C, n, m were updated in place
+            x_t = x_t + a
+        h = apply_norm(cfg, _block(pp["ln"], period - 1), x_t)
+        st = tuple(cs[key][p_i] for key in ("c", "n", "h", "m"))
+        a, st2 = ssm.slstm_step(cfg, pp["slstm"], h, st)
+        for key, val in zip(("c", "n", "h", "m"), st2):
+            cs[key][p_i].copy_(val)
+        x_t = x_t + a
+    return x_t, cache
+
+
+def xlstm_cache_specs(cfg, batch: int, capacity: int):
+    period, P = _xlstm_layout(cfg)
+    return {
+        "mlstm": ssm.mlstm_state_specs(cfg, batch, stack=(P, period - 1)),
+        "slstm": ssm.slstm_state_specs(cfg, batch, stack=(P,)),
+    }
+
+
+# ================================================================== dispatchers
+
+def stack_specs(cfg, dtype):
+    if family_kind(cfg) == "xlstm":
+        return xlstm_specs(cfg, dtype)
+    return uniform_specs(cfg, dtype)
+
+
+def stack_forward(cfg, sp, x, positions, mode: str):
+    if family_kind(cfg) == "xlstm":
+        return xlstm_forward(cfg, sp, x, mode)
+    return uniform_forward(cfg, sp, x, positions, mode)
+
+
+def stack_decode(cfg, sp, x_t, cache, pos):
+    if family_kind(cfg) == "xlstm":
+        return xlstm_decode(cfg, sp, x_t, cache)
+    return uniform_decode(cfg, sp, x_t, cache, pos)
+
+
+def split_cache(cfg, inner):
+    """The decode state ``inner`` with its stacked leaves cut into per-layer
+    (xLSTM: per-block) views, no copy, so that a traced program of many
+    decode steps cuts once instead of once per step; writes through the views
+    land in the stacked tensors. A K/V cache is returned as it is."""
+    if family_kind(cfg) != "xlstm":
+        return inner
+    return {"mlstm": {key: [list(per) for per in leaf] for key, leaf in inner["mlstm"].items()},
+            "slstm": {key: list(leaf) for key, leaf in inner["slstm"].items()}}
+
+
+def stack_cache_specs(cfg, batch: int, capacity: int):
+    if family_kind(cfg) == "xlstm":
+        return xlstm_cache_specs(cfg, batch, capacity)
+    return uniform_cache_specs(cfg, batch, capacity)

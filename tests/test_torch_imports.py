@@ -34,7 +34,7 @@ def test_port_sources_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"ops.py", "deploy.py", "boot.py", "chip_smoke.py", "decode.py", "paging.py",
             "cluster.py", "scheduler.py", "resilience.py",
-            "paged_decode_attention.py"} <= names
+            "paged_decode_attention.py", "mlstm.py", "ssm.py", "xlstm_1_3b.py"} <= names
 
 
 def test_importing_the_port_builds_nothing_and_loads_no_jax():
@@ -76,15 +76,19 @@ def test_kernel_impl_on_cpu_tensors_raises():
             ops.decode_attention(q[:, 0], q[:, :, :1], q[:, :, :1], 2)
         with pytest.raises(RuntimeError, match="CUDA"):
             ops.paged_decode_attention(q[:, 0], pages, pages, table, 2)
-    # and on the CPU, "auto" and "plain" take the plain versions of all three ops
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ops.mlstm(q, q, q, q[..., 0], q[..., 0])
+    # and on the CPU, "auto" and "plain" take the plain versions of all four ops
     for impl in ("auto", "plain"):
         with ops.impl_scope(impl):
             assert ops.paged_decode_attention(q[:, 0], pages, pages, table, 2).shape == (1, 2, 32)
+            assert ops.mlstm(q, q, q, q[..., 0], q[..., 0])[0].shape == (1, 4, 2, 32)
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm as mk
     from repro_torch.kernels import paged_decode_attention as pda
     q = torch.zeros(1, 4, 2, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -93,9 +97,12 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
         da.decode_attention(q[:, 0], q, q, 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         pda.paged_decode_attention(q[:, 0], q, q, torch.zeros(1, 1, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mk.mlstm(q, q, q, q[..., 0], q[..., 0])
     assert fa.LAUNCHES.count == 0 and da.LAUNCHES.count == 0 and pda.LAUNCHES.count == 0
+    assert mk.LAUNCHES.count == 0
     assert set(ops.launch_counts()) == {"flash_attention", "decode_attention",
-                                        "paged_decode_attention"}
+                                        "paged_decode_attention", "mlstm"}
 
 
 def test_cuda_call_without_a_toolkit_raises_instead_of_falling_back(tmp_path, monkeypatch):
@@ -115,4 +122,4 @@ def test_source_hash_covers_every_kernel_source():
     assert len(h) == 16
     names = {p.name for p in _cuda.CSRC.iterdir()}
     assert {"flash_attention.cu", "decode_attention.cu", "paged_decode_attention.cu",
-            "decode_sweep.cuh", "common.cuh"} <= names
+            "mlstm.cu", "decode_sweep.cuh", "common.cuh"} <= names
