@@ -1,30 +1,36 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's cold-start serve path (llama3.2-3b and xlstm-1.3b)
-and its continuous-batching decode tier on one NVIDIA GPU and check them.
+"""Run the PyTorch port's cold-start serve path (llama3.2-3b, xlstm-1.3b and
+jamba-1.5-large) and its continuous-batching decode tier on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, compute capability; then build the hand-written kernels from
-   ``src/repro_torch/kernels/csrc`` with nvcc.
+   versions, compute capability, SM count and maximum SM clock; then build
+   the hand-written kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
 2. Kernels vs plain: each kernel against its plain PyTorch version on CUDA
    tensors, at the paths' shapes and at edge cases (ragged lengths,
-   q_offset, bidirectional, length 0 and S, NaN past length; for the paged
-   kernel also a second page layout, bit-identical, NaN in the null and
-   unmapped pages, f32, MQA/GQA at D=64, and bit-identical to the contiguous
-   kernel on the same logical cache; for the mLSTM kernel padding, S shorter
-   than a chunk, a carried state, f32, the reduced dims and large input
-   gates), with kernel / plain / library times (CUDA events) and the least
-   time the card could take (``bound_ms``).
+   q_offset, bidirectional, length 0 and S, NaN past length, jamba's 64/8
+   heads for flash and decode, timed too; for the paged kernel also a second page
+   layout, bit-identical, NaN in the null and unmapped pages, f32, MQA/GQA
+   at D=64, and bit-identical to the contiguous kernel on the same logical
+   cache; for the mLSTM kernel padding, S shorter than a chunk, a carried
+   state, f32, the reduced dims and large input gates; for the selective
+   scan ragged S, S = 1, S past a chunk, a carried state, f32, the reduced
+   dims, a channel count that is no multiple of the block, and decays that
+   underflow to 0), with kernel / plain / library times (CUDA events) and
+   the least time the card could take (``bound_ms``; for the scan the
+   larger of its bytes and its exponentials at the SM clock).
 3. Path: ``deploy`` full-width llama3.2-3b (bf16, its depth cut to 8 of
    28 layers for the time limit, random weights from the spec's seed) on the
    GPU, then serve 2 cold requests through the ``unikernel`` driver (boot ->
    run -> exit), counting kernel launches; time each boot track alone; then
    hold every kernel call of a kernel-path prefill against its plain version
    on the same inputs, and the kernel path's prefill logits and the plain
-   path's, on the same weights, against the plain path in float32.
+   path's, on the same weights, against the plain path in float32 (its
+   weights read from the snapshot once the executor has exited).
 3b. Decode tier, on phase 3's deployment: ``ensure_decode(slots=8,
    page_size=16)`` (export, save, load, verify the admit and step
    programs), then a ``DecodeScheduler`` on a one-host ``Cluster`` serves 12
@@ -35,11 +41,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    wrote) and one step call, each replayed on clones of the pool it saw
    mid-run, kernel route and plain route, against the plain route in float32.
 3c. The xlstm serve path, after llama's deployment is freed: ``deploy``
-   full-width xlstm-1.3b (bf16, 48 blocks: 6 periods of 7 mLSTM + 1 sLSTM,
-   random weights from the spec's seed), then phase 3's checks: 3 cold
-   requests (42 mLSTM launches each, no attention), each boot track alone,
+   full-width xlstm-1.3b (bf16, its depth cut to 2 of 6 periods of 7 mLSTM
+   + 1 sLSTM for the time limit, random weights from the spec's seed), then
+   phase 3's checks: 3 cold requests (14 mLSTM launches each, no
+   attention), each boot track alone,
    every mLSTM call of a kernel-path prefill against its plain version, and
    the prefill-logit gate against the plain path in float32.
+3d. The jamba serve path, after xlstm's deployment is freed: ``deploy``
+   full-width jamba-1.5-large cut to one period of 8 layers (7 Mamba + 1
+   attention, MoE on every other layer) and 4 of its 16 experts (top-2),
+   16.2 B parameters, 32.5 GB in bf16; then phase 3's checks: 2 cold requests
+   (7 selective-scan, 1 flash and 16 decode launches each), each boot track
+   alone, every scan and flash call of a kernel-path prefill against its
+   plain version, and the prefill-logit gate. Each path logs its peak device
+   memory, and the free disk and host memory before its deploy.
 4. A ``kernels`` JSON line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -63,14 +78,22 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12            # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12              # f32 outside the tensor cores
+MUFU_PER_CLOCK_PER_SM = 16          # exponentials (ex2) per clock per SM, Hopper
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
 LLAMA_LAYERS = 8                    # of 28: the llama paths' depth, cut for the time limit
 LLAMA_ARCH = f"llama3.2-3b:{LLAMA_LAYERS}L"
 SPEC = dict(arch=LLAMA_ARCH, reduced=False, batch_size=4, prompt_len=512, decode_steps=16)
-XLSTM_SPEC = dict(SPEC, arch="xlstm-1.3b")
+XLSTM_PERIODS = 2                   # of 6: the xlstm path's depth, cut for the time limit
+XLSTM_ARCH = f"xlstm-1.3b:{XLSTM_PERIODS}P"
+XLSTM_SPEC = dict(SPEC, arch=XLSTM_ARCH)
 LLAMA_REQUESTS = 2                  # 3 before the xlstm phase; cut for the time limit
 XLSTM_REQUESTS = 3
+# jamba-1.5-large at full width, cut to one period of 8 layers (7 Mamba + 1
+# attention) and 4 of its 16 experts (top-2 kept) to fit one card twice over
+JAMBA_ARCH = "jamba-1.5-large-398b:8L4E"
+JAMBA_SPEC = dict(SPEC, arch=JAMBA_ARCH)
+JAMBA_REQUESTS = 2
 # mLSTM outputs, and every kernel call of a path's prefill, are held against
 # the plain version by max |got - want| / max(1, max |want|), since an mLSTM
 # row whose normaliser is small is large: bf16 outputs within 2e-2, f32
@@ -302,6 +325,54 @@ def check_mlstm(torch, mk, ref, gen, case, timed: bool):
     return row
 
 
+def check_scan(torch, F, ss, ref, gen, case, timed: bool, exp_per_s: float):
+    """The selective-scan kernel against ``ref.selective_scan``. Inputs are
+    drawn like the model's: x, b, c ~ N(0, 1) in ``dtype``; dt =
+    softplus(N(0, 1)) x ``dt_scale`` in f32 (a scale of 1e4 underflows every
+    decay to 0); a_log = log(1..Ds) + 0.1 N(0, 1) (the S4D-real init, jittered);
+    d_skip ~ N(0, 1). With ``split``, the kernel runs the first ``split``
+    steps, then the rest from the state it returned, against one long plain
+    pass. ``exp_per_s`` is the card's rate of exponentials (special-function
+    units), for the bound."""
+    B, S, Di, Ds, dtype, split, dt_scale = case
+    dt_ = getattr(torch, dtype)
+    x = torch.randn(B, S, Di, generator=gen, device="cuda").to(dt_)
+    dt = F.softplus(torch.randn(B, S, Di, generator=gen, device="cuda")) * dt_scale
+    a_log = torch.log(torch.arange(1, Ds + 1, device="cuda", dtype=torch.float32)) + \
+        0.1 * torch.randn(Di, Ds, generator=gen, device="cuda")
+    b = torch.randn(B, S, Ds, generator=gen, device="cuda").to(dt_)
+    c = torch.randn(B, S, Ds, generator=gen, device="cuda").to(dt_)
+    d_skip = torch.randn(Di, generator=gen, device="cuda")
+    if split:
+        y1, h1 = ss.selective_scan(x[:, :split], dt[:, :split], a_log, b[:, :split],
+                                   c[:, :split], d_skip)
+        y2, h = ss.selective_scan(x[:, split:], dt[:, split:], a_log, b[:, split:],
+                                  c[:, split:], d_skip, h1)
+        y = torch.cat([y1, y2], dim=1)
+    else:
+        y, h = ss.selective_scan(x, dt, a_log, b, c, d_skip)
+    exp_y, exp_h = ref.selective_scan(x, dt, a_log, b, c, d_skip)
+    torch.cuda.synchronize()
+    err_y, err_h = scaled_err(y, exp_y), scaled_err(h, exp_h)
+    finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    ok = finite and y.dtype == x.dtype and err_y <= SCALED_TOL[dtype] and \
+        err_h <= SCALED_TOL["float32"]
+    row = {"case": list(case), "max_abs_err": (y.float() - exp_y.float()).abs().max().item(),
+           "max_abs_err_h": (h - exp_h).abs().max().item(), "scaled_err_y": err_y,
+           "scaled_err_h": err_h, "ok": ok}
+    if timed:
+        nbytes = sum(t.numel() * t.element_size() for t in (x, dt, a_log, b, c, d_skip, y, h))
+        exps = float(B * S * Di * Ds)
+        row["bound_bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        row["bound_exp_ms"] = exps / exp_per_s * 1e3
+        row["bound_ms"], row["bound_by"] = bound(nbytes, exps, exp_per_s)
+        row["ms"] = time_ms(torch, lambda: ss.selective_scan(x, dt, a_log, b, c, d_skip), 50)
+        row["plain_ms"] = time_ms(torch, lambda: ref.selective_scan(x, dt, a_log, b, c, d_skip),
+                                  3)
+        row["library_ms"] = None     # no single PyTorch call computes the selective scan
+    return row
+
+
 # -------------------------------------------------------------------- phase 3b
 
 CAPTURE_STEP = 4                    # the step whose inputs the numeric gate replays
@@ -393,7 +464,7 @@ def decode_tier(torch, dep) -> dict:
     if s["boots"] != 1 or s["cooldowns"] != 1:
         raise AssertionError(f"boots {s['boots']} cooldowns {s['cooldowns']}, expected 1 and 1")
     want = {"flash_attention": L * sched.admits, "decode_attention": 0,
-            "paged_decode_attention": L * sched.steps, "mlstm": 0}
+            "paged_decode_attention": L * sched.steps, "mlstm": 0, "selective_scan": 0}
     if launches != want or sched.admits != N_DECODE_REQUESTS:
         raise AssertionError(f"decode tier launches {launches} (admits {sched.admits}, "
                              f"steps {sched.steps}), expected {want}")
@@ -479,7 +550,7 @@ def decode_tier(torch, dep) -> dict:
 
 # ------------------------------------------------------------- phases 3 and 3c
 
-KERNEL_MODULES = ("fa", "da", "pda", "mk")        # the kernel modules ``ops`` calls
+KERNEL_MODULES = ("fa", "da", "pda", "mk", "ss")  # the kernel modules ``ops`` calls
 
 
 @contextlib.contextmanager
@@ -525,14 +596,26 @@ def check_recorded_calls(torch, calls) -> None:
     if not worst or failed:
         raise AssertionError(f"kernel calls disagree with their plain versions: {failed or 'none'}")
 
+def memory_line(torch, work) -> str:
+    """Free disk under ``work``, available host memory, the card's peak."""
+    avail = next((int(line.split()[1]) * 1024 for line in
+                  Path("/proc/meminfo").read_text().splitlines()
+                  if line.startswith("MemAvailable:")), 0)
+    return (f"disk free {shutil.disk_usage(work).free / 1e9:.1f} GB | host MemAvailable "
+            f"{avail / 1e9:.1f} GB | device max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
 def serve_path(torch, spec, work, n_requests, want_per_request):
     """Deploy ``spec`` on the GPU, serve ``n_requests`` cold requests through the
     ``unikernel`` driver (boot -> run -> exit) with the kernel launches of
     each request equal to ``want_per_request(cfg, spec)``, time each boot
     track alone, then, on the last executor's weights, hold every kernel
     call of a kernel-path prefill against its plain version and the kernel
-    path's prefill logits against the plain path in float32. Returns
-    (deployment, launches of the requests)."""
+    path's prefill logits against the plain path in float32. The float32
+    weights are read from the snapshot after the executor has exited, so the
+    card never holds both copies. Returns (deployment, launches of the
+    requests)."""
     from repro_torch import pytree
     from repro_torch.core.boot import streamed_device_put
     from repro_torch.core.compile_cache import CompileCache
@@ -543,6 +626,9 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
+    work.mkdir(parents=True, exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    log(f"before deploy {spec.name}: {memory_line(torch, work)}")
     t0 = time.perf_counter()
     dep = deploy(spec, CompileCache(work / "programs"), SnapshotStore(work / "snapshots"),
                  str(work), device="cuda")
@@ -553,7 +639,9 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
         f"] | {m.param_count} params | program {m.program_bytes} B | snapshot "
         f"{m.snapshot_bytes} B | "
         f"{cfg.n_layers} layers d_model {cfg.d_model} heads {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} d_ff {cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype}")
+        f"{cfg.n_kv_heads} d_ff {cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype} | "
+        f"{memory_line(torch, work)}")
+    torch.cuda.reset_peak_memory_stats()
     tokens = torch.from_numpy(dep.example_tokens(seed=1)).cuda()
     want = want_per_request(cfg, spec)
     driver = UnikernelDriver()
@@ -596,31 +684,41 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
     t4 = now()
     log(f"tracks alone: weights restore_weights_host {t1 - t0:.3f} s + device_put "
         f"{t2 - t1:.3f} s ({m.snapshot_bytes / (t2 - t1) / 1e9:.2f} GB/s) | program "
-        f"fetch+deserialize {t4 - t3:.3f} s")
+        f"fetch+deserialize {t4 - t3:.3f} s | requests and tracks alone: "
+        f"{memory_line(torch, work)}")
+    torch.cuda.reset_peak_memory_stats()
 
-    # Same weights (the last executor's): the kernel path, the plain path,
-    # and the plain path in float32 as the reference. Two bf16 paths drift
-    # apart over the layers by bf16 rounding alone, so the gate is that the
-    # kernel path is no less accurate than the plain bf16 path: its relative
-    # L2 error against the f32 logits is at most twice the plain path's. A
-    # wrong kernel would be off by orders of magnitude, except where the
-    # stack loses the f32 logits in bf16 by itself (xlstm's 48 random-weight
-    # blocks): there the per-call check carries the kernels' correctness.
+    # Same weights (the last executor's, and the snapshot they came from):
+    # the kernel path, the plain path, and the plain path in float32 as the
+    # reference. Two bf16 paths drift apart over the layers by bf16 rounding
+    # alone, so the gate is that the kernel path is no less accurate than the
+    # plain bf16 path: its relative L2 error against the f32 logits is at
+    # most twice the plain path's. A wrong kernel would be off by orders of
+    # magnitude, except where the stack loses the f32 logits in bf16 by
+    # itself (xlstm's random-weight blocks, all 48 of them): there the
+    # per-call check carries the kernels' correctness.
     params = ex.params
-    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), dep.model.max_seq)
     batch = {"tokens": tokens}
     with torch.inference_mode(), recorded_kernel_calls(ops) as calls:
         lk, _ = dep.model.prefill(params, batch, capacity=spec.prompt_len)
     check_recorded_calls(torch, calls)
     del calls
-    with torch.inference_mode():
-        with ops.impl_scope("plain"):
-            lp, _ = dep.model.prefill(params, batch, capacity=spec.prompt_len)
-            out_plain = dep.serve_fn(params, tokens)
-            params32 = pytree.tree_map(lambda t: t.float(), params)
-            l32, _ = model32.prefill(params32, batch, capacity=spec.prompt_len)
-            del params32
+    with torch.inference_mode(), ops.impl_scope("plain"):
+        lp, _ = dep.model.prefill(params, batch, capacity=spec.prompt_len)
+        out_plain = dep.serve_fn(params, tokens)
+    del params
     driver.finish(dep, ex)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), dep.model.max_seq)
+    with torch.inference_mode(), ops.impl_scope("plain"):
+        params32 = pytree.tree_map(lambda t: t.to("cuda").float(),
+                                   dep.snapshots.load_host(key))
+        l32, _ = model32.prefill(params32, batch, capacity=spec.prompt_len)
+        del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"gates, f32 reference included: {memory_line(torch, work)}")
     lk, lp = lk.float(), lp.float()
 
     err_k, err_p = rel_l2(lk, l32), rel_l2(lp, l32)
@@ -636,6 +734,22 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
         raise AssertionError("kernel path's prefill logits are less accurate than the plain "
                              "path's")
     return dep, launches
+
+
+def register_jamba() -> None:
+    from repro_torch.configs import get_config, register
+    cfg = get_config("jamba-1.5-large-398b")
+    register(JAMBA_ARCH)(lambda: dataclasses.replace(
+        cfg, n_layers=cfg.ssm.attn_every, moe=dataclasses.replace(cfg.moe, n_experts=4)))
+
+
+def jamba_launches(cfg, spec) -> dict:
+    """Per serve request: one flash and K decode launches per attention layer,
+    one scan launch per Mamba layer (its prefill)."""
+    P = cfg.n_layers // cfg.ssm.attn_every
+    return {"flash_attention": P, "decode_attention": P * spec.decode_steps,
+            "paged_decode_attention": 0, "mlstm": 0,
+            "selective_scan": P * (cfg.ssm.attn_every - 1)}
 
 
 # ------------------------------------------------------------------------ main
@@ -654,6 +768,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mlstm as mk
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import selective_scan as ss
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -665,8 +780,15 @@ def main() -> int:
     log(smi)
     kind = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
+    sm_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                   "--format=csv,noheader,nounits"], check=True,
+                                  capture_output=True, text=True).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_per_s = MUFU_PER_CLOCK_PER_SM * n_sm * sm_mhz * 1e6
     log(f"device: {kind} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
-        f"capability {cap[0]}.{cap[1]} | python {sys.version.split()[0]}")
+        f"capability {cap[0]}.{cap[1]} | {n_sm} SMs, max SM clock {sm_mhz:.0f} MHz "
+        f"(exponentials: {MUFU_PER_CLOCK_PER_SM} per clock per SM = {exp_per_s:.4g}/s) | "
+        f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     lib_path = _cuda.build()
     _cuda.library()
@@ -676,6 +798,8 @@ def main() -> int:
     # ---- phase 2: kernels vs plain
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_main = (4, 512, 512, 24, 8, 128, True, 0, "bfloat16")
+    jamba_flash = (4, 512, 512, 64, 8, 128, True, 0, "bfloat16")    # jamba's prefill, timed too
+    jamba_decode = (4, 528, 64, 8, 128, [528] * 4, "bfloat16")      # jamba's decode, timed too
     flash_cases = [flash_main,
                    (1, 512, 512, 24, 8, 128, True, 0, "bfloat16"),    # the decode tier's admit
                    (2, 77, 77, 24, 8, 128, True, 0, "bfloat16"),      # ragged
@@ -683,13 +807,18 @@ def main() -> int:
                    (2, 128, 128, 24, 8, 128, False, 0, "bfloat16"),   # bidirectional
                    (1, 96, 96, 6, 3, 64, True, 0, "bfloat16"),
                    (2, 200, 200, 4, 2, 32, True, 0, "float32"),
-                   (2, 130, 130, 24, 8, 128, False, 0, "float32")]
+                   (2, 130, 130, 24, 8, 128, False, 0, "float32"),
+                   jamba_flash,
+                   (2, 100, 100, 64, 8, 128, True, 0, "float32")]
     decode_main = (4, 528, 24, 8, 128, [528, 528, 528, 528], "bfloat16")
     decode_cases = [decode_main,
                     (4, 528, 24, 8, 128, [0, 528, 300, 517], "bfloat16"),
                     (3, 100, 4, 4, 32, [1, 0, 100], "bfloat16"),
                     (2, 264, 24, 8, 128, [1, 200], "float32"),
-                    (2, 64, 8, 2, 64, [64, 17], "float32")]
+                    (2, 64, 8, 2, 64, [64, 17], "float32"),
+                    jamba_decode,
+                    (4, 528, 64, 8, 128, [528, 513, 0, 520], "bfloat16"),
+                    (2, 300, 64, 8, 128, [0, 299], "float32")]
     # B, page_size, max_pages, Hq, Hkv, D, lengths, dtype; the first is the
     # decode tier's shape (8 slots, 33 pages of 16 = 528 positions)
     paged_cases = [(8, 16, 33, 24, 8, 128, [528] * 8, "bfloat16"),
@@ -708,6 +837,18 @@ def main() -> int:
                    (2, 130, 4, 32, 64, "float32", 1.0, 0),           # the reduced dims
                    (2, 70, 4, 32, 64, "bfloat16", 1.0, 33),
                    (2, 192, 4, 512, 1024, "bfloat16", 30.0, 0)]      # large input gates
+    # B, S, Di, Ds, dtype, split, dt_scale; the first is jamba-1.5-large's prefill
+    scan_cases = [(4, 512, 16384, 16, "bfloat16", 0, 1.0),
+                  (2, 100, 16384, 16, "bfloat16", 0, 1.0),        # ragged S
+                  (2, 1, 16384, 16, "bfloat16", 0, 1.0),          # S = 1
+                  (2, 77, 4096, 16, "bfloat16", 0, 1.0),          # S past a chunk, odd
+                  (2, 512, 16384, 16, "bfloat16", 200, 1.0),      # carried state
+                  (2, 150, 4096, 16, "float32", 64, 1.0),         # f32 x
+                  (2, 130, 256, 8, "float32", 0, 1.0),            # the reduced dims
+                  (2, 70, 256, 8, "bfloat16", 33, 1.0),
+                  (2, 64, 1000, 16, "bfloat16", 0, 1.0),          # Di not a multiple of 128
+                  (2, 96, 1000, 4, "float32", 0, 1.0),
+                  (2, 64, 2048, 16, "float32", 0, 1e4)]           # every decay underflows to 0
     results = {}
     for name, check, cases in (
             ("flash_attention",
@@ -716,22 +857,31 @@ def main() -> int:
              lambda c, t: check_decode(torch, F, da, ref, gen, c, t), decode_cases),
             ("paged_decode_attention",
              lambda c, t: check_paged(torch, F, pda, da, ref, gen, c, t), paged_cases),
-            ("mlstm", lambda c, t: check_mlstm(torch, mk, ref, gen, c, t), mlstm_cases)):
-        rows = [check(c, i == 0) for i, c in enumerate(cases)]
+            ("mlstm", lambda c, t: check_mlstm(torch, mk, ref, gen, c, t), mlstm_cases),
+            ("selective_scan",
+             lambda c, t: check_scan(torch, F, ss, ref, gen, c, t, exp_per_s), scan_cases)):
+        rows = [check(c, i == 0 or c is jamba_flash or c is jamba_decode)
+                for i, c in enumerate(cases)]
         for r in rows:
             extra = "".join(f" {k} {r[k]}" for k in ("layout_bitwise", "vs_contiguous_bitwise",
                                                      "vs_contiguous_max_abs_err",
                                                      "max_abs_err_C_n_m", "scaled_err_h",
-                                                     "scaled_err_C_n_m")
+                                                     "scaled_err_C_n_m", "max_abs_err_h",
+                                                     "scaled_err_y")
                             if k in r)
             log(f"{name} {r['case']}: max_abs_err {r['max_abs_err']:.3g}{extra} "
                 f"{'ok' if r['ok'] else 'FAIL'}")
         main = rows[0]
-        library = "none (no single PyTorch call)" if main["library_ms"] is None \
-            else f"{main['library_ms']:.4f}"
-        log(f"{name} at the path's shape: kernel_ms {main['ms']:.4f} plain_ms "
-            f"{main['plain_ms']:.4f} library_ms {library} bound_ms "
-            f"{main['bound_ms']:.4f} ({main['bound_by']})")
+        for r in rows:
+            if "ms" not in r:
+                continue
+            library = "none (no single PyTorch call)" if r["library_ms"] is None \
+                else f"{r['library_ms']:.4f}"
+            split = "".join(f" {k} {r[k]:.4f}" for k in ("bound_bytes_ms", "bound_exp_ms")
+                            if k in r)
+            where = "the path's shape" if r is main else f"jamba's shape {r['case']}"
+            log(f"{name} at {where}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+                f"library_ms {library} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}){split}")
         bad = [r["case"] for r in rows if not r["ok"]]
         if bad:
             raise AssertionError(f"{name} disagrees with its plain version on {bad}")
@@ -739,6 +889,10 @@ def main() -> int:
 
     register(LLAMA_ARCH)(lambda: dataclasses.replace(get_config("llama3.2-3b"),
                                                      n_layers=LLAMA_LAYERS))
+    xlstm = get_config("xlstm-1.3b")
+    register(XLSTM_ARCH)(lambda: dataclasses.replace(
+        xlstm, n_layers=XLSTM_PERIODS * xlstm.ssm.slstm_every))
+    register_jamba()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         # ---- phase 3: the llama serve path, full width
@@ -746,7 +900,7 @@ def main() -> int:
             torch, FunctionSpec(**SPEC), work / "llama", LLAMA_REQUESTS,
             lambda cfg, spec: {"flash_attention": cfg.n_layers,
                                "decode_attention": cfg.n_layers * spec.decode_steps,
-                               "paged_decode_attention": 0, "mlstm": 0})
+                               "paged_decode_attention": 0, "mlstm": 0, "selective_scan": 0})
         # ---- phase 3b: the decode tier on the same deployment
         launches_3b = decode_tier(torch, dep)
         del dep
@@ -754,12 +908,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         shutil.rmtree(work / "llama", ignore_errors=True)
 
-        # ---- phase 3c: the xlstm serve path, full width
+        # ---- phase 3c: the xlstm serve path, full width, 2 of 6 periods
         _, launches_3c = serve_path(
             torch, FunctionSpec(**XLSTM_SPEC), work / "xlstm", XLSTM_REQUESTS,
             lambda cfg, spec: {"flash_attention": 0, "decode_attention": 0,
                                "paged_decode_attention": 0,
-                               "mlstm": cfg.n_layers - cfg.n_layers // cfg.ssm.slstm_every})
+                               "mlstm": cfg.n_layers - cfg.n_layers // cfg.ssm.slstm_every,
+                               "selective_scan": 0})
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(work / "xlstm", ignore_errors=True)
+
+        # ---- phase 3d: the jamba serve path, full width, one period
+        _, launches_3d = serve_path(
+            torch, FunctionSpec(**JAMBA_SPEC), work / "jamba", JAMBA_REQUESTS, jamba_launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -772,11 +934,13 @@ def main() -> int:
                    "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
                    "src/repro/kernels/paged_decode_attention.py:40"),
                "mlstm": ("src/repro_torch/kernels/csrc/mlstm.cu",
-                         "src/repro/kernels/mlstm.py:31")}
+                         "src/repro/kernels/mlstm.py:31"),
+               "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                                  "src/repro/kernels/selective_scan.py:26")}
     kernels = []
     for name, r in results.items():
         by_path = {"serve": launches[name], "decode_tier": launches_3b[name],
-                   "xlstm_serve": launches_3c[name]}
+                   "xlstm_serve": launches_3c[name], "jamba_serve": launches_3d[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],

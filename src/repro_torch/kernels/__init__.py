@@ -1,2 +1,2 @@
-"""Attention kernels written by hand for Hopper (``csrc/``), their plain
+"""Kernels written by hand for Hopper (``csrc/``), their plain
 PyTorch versions (``ref``) and the device dispatch between them (``ops``)."""

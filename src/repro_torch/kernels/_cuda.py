@@ -131,6 +131,8 @@ def library() -> ctypes.CDLL:
             lib.repro_paged_decode_attention.restype = i32
             lib.repro_mlstm.argtypes = [ptr] * 12 + [i32] * 6 + [ctypes.c_float, ptr]
             lib.repro_mlstm.restype = i32
+            lib.repro_selective_scan.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
+            lib.repro_selective_scan.restype = i32
             lib.repro_cuda_error_string.argtypes = [i32]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,20 +1,23 @@
 """Dispatch between the hand-written kernels and their plain versions.
 
 Port of ``repro.kernels.ops``. The model calls :func:`attention`,
-:func:`decode_attention`, :func:`paged_decode_attention` and :func:`mlstm`;
-each is a ``torch.library`` custom op (``repro_torch::flash_attention``,
-``repro_torch::decode_attention``, ``repro_torch::paged_decode_attention``,
-``repro_torch::mlstm``) with a fake implementation, so ``torch.export``
-records it as one opaque node and the exported programs dispatch at run time.
+:func:`decode_attention`, :func:`paged_decode_attention`, :func:`mlstm` and
+:func:`selective_scan`; each is a ``torch.library`` custom op
+(``repro_torch::flash_attention``, ``repro_torch::decode_attention``,
+``repro_torch::paged_decode_attention``, ``repro_torch::mlstm``,
+``repro_torch::selective_scan``) with a fake implementation, so
+``torch.export`` records it as one opaque node and the exported programs
+dispatch at run time.
 
-:func:`slstm_scan` (``repro_torch::slstm_scan``) and :func:`mlstm_step`
-(``repro_torch::mlstm_step``) are custom ops of the same kind around code
+:func:`slstm_scan` (``repro_torch::slstm_scan``), :func:`mlstm_step`
+(``repro_torch::mlstm_step``) and :func:`mamba_step`
+(``repro_torch::mamba_step``) are custom ops of the same kind around code
 that is not a kernel: the sLSTM time loop, which the JAX package runs as a
-``lax.scan``, and the mLSTM decode step, which it runs as plain ``jnp`` (the
-op updates the state in place). They run the plain versions on any device
-and count no launches; being one node each, they keep a prompt's hundreds of
-sLSTM steps and each decode step's recurrent arithmetic out of the exported
-graph, whose size sets the cold start's deserialize time.
+``lax.scan``, and the mLSTM and Mamba decode steps, which it runs as plain
+``jnp`` (the ops update the state in place). They run the plain versions on
+any device and count no launches; being one node each, they keep a prompt's
+hundreds of sLSTM steps and each decode step's recurrent arithmetic out of
+the exported graph, whose size sets the cold start's deserialize time.
 
 The route depends on the tensors' device, never on probing the hardware:
 
@@ -42,6 +45,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mlstm as mk
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as ss
 
 _VALID = ("auto", "plain", "kernel")
 
@@ -91,11 +95,12 @@ def launch_counts() -> dict:
     return {"flash_attention": fa.LAUNCHES.count,
             "decode_attention": da.LAUNCHES.count,
             "paged_decode_attention": pda.LAUNCHES.count,
-            "mlstm": mk.LAUNCHES.count}
+            "mlstm": mk.LAUNCHES.count,
+            "selective_scan": ss.LAUNCHES.count}
 
 
 def reset_launch_counts() -> None:
-    for kernel in (fa, da, pda, mk):
+    for kernel in (fa, da, pda, mk, ss):
         kernel.LAUNCHES.reset()
 
 
@@ -162,6 +167,21 @@ def _(q, k, v, i_raw, f_raw, C, n, m):
             torch.empty((B, H, Dk), **f32), torch.empty((B, H), **f32))
 
 
+@torch.library.custom_op("repro_torch::selective_scan", mutates_args=())
+def _selective_scan_op(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                       h0: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    if use_kernel(x.device):
+        return ss.selective_scan(x, dt, a_log, b, c, d_skip, h0)
+    return ref.selective_scan(x, dt, a_log, b, c, d_skip, h0)
+
+
+@_selective_scan_op.register_fake
+def _(x, dt, a_log, b, c, d_skip, h0):
+    B, _, Di = x.shape
+    return torch.empty_like(x), x.new_empty((B, Di, a_log.shape[1]), dtype=torch.float32)
+
+
 @torch.library.custom_op("repro_torch::mlstm_step", mutates_args=("C", "n", "m"))
 def _mlstm_step_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i: torch.Tensor,
                    f: torch.Tensor, C: torch.Tensor, n: torch.Tensor,
@@ -175,6 +195,20 @@ def _mlstm_step_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i: torch.T
 @_mlstm_step_op.register_fake
 def _(q, k, v, i, f, C, n, m):
     return q.new_empty(v.shape)
+
+
+@torch.library.custom_op("repro_torch::mamba_step", mutates_args=("h",))
+def _mamba_step_op(x_t: torch.Tensor, dt_t: torch.Tensor, a_log: torch.Tensor,
+                   b_t: torch.Tensor, c_t: torch.Tensor, d_skip: torch.Tensor,
+                   h: torch.Tensor) -> torch.Tensor:
+    y, h_new = ref.mamba_step(x_t, dt_t, a_log, b_t, c_t, d_skip, h)
+    h.copy_(h_new)
+    return y
+
+
+@_mamba_step_op.register_fake
+def _(x_t, dt_t, a_log, b_t, c_t, d_skip, h):
+    return torch.empty_like(x_t)
 
 
 @torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
@@ -227,10 +261,24 @@ def mlstm(q, k, v, i_raw, f_raw, state=None):
     return h, (C, n, m)
 
 
+def selective_scan(x, dt, a_log, b, c, d_skip, h0=None):
+    """Mamba selective scan. x, dt: [B,S,Di]; a_log: [Di,Ds]; b, c: [B,S,Ds];
+    d_skip: [Di]; h0: optional [B,Di,Ds] -> (y [B,S,Di] in x's dtype,
+    h_final [B,Di,Ds] f32)."""
+    return torch.ops.repro_torch.selective_scan(x, dt, a_log, b, c, d_skip, h0)
+
+
 def slstm_scan(gates, r, b_in, c, n, h, m):
     """The sLSTM over a sequence. gates: [B,S,4d]; r: [H,dh,4dh]; b_in: [4d]
     f32; c, n, h, m: [B,d] f32 -> (hs [B,S,d] f32, c, n, h, m)."""
     return torch.ops.repro_torch.slstm_scan(gates, r, b_in, c, n, h, m)
+
+
+def mamba_step(x_t, dt_t, a_log, b_t, c_t, d_skip, h):
+    """One Mamba decode step (``ref.mamba_step``), the state ``h`` [B,Di,Ds]
+    f32 updated in place. x_t, dt_t: [B,Di]; b_t, c_t: [B,Ds] -> y [B,Di] in
+    x_t's dtype."""
+    return torch.ops.repro_torch.mamba_step(x_t, dt_t, a_log, b_t, c_t, d_skip, h)
 
 
 def mlstm_step(q_t, k_t, v_t, i_t, f_t, state):

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``).
 
 The same chunked online-softmax and chunkwise-mLSTM math as the JAX
-references, with f32 accumulation, and the sLSTM cell the JAX package scans
-with ``lax.scan``. They are the port's oracle: the CPU path of the model runs them,
-the tests hold them against the JAX package, and ``chip_smoke.py`` holds each
+references, with f32 accumulation, the Mamba selective scan as a loop over
+time steps, and the sLSTM cell the JAX package scans with ``lax.scan``.
+They are the port's oracle: the CPU path of the model runs them, the tests
+hold them against the JAX package, and ``chip_smoke.py`` holds each
 hand-written kernel against them on the card. The scans over blocks become
 Python loops.
 
@@ -160,6 +161,51 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     k = k_pages[table].reshape(B, max_pages * page_size, Hkv, D)
     v = v_pages[table].reshape(B, max_pages * page_size, Hkv, D)
     return decode_attention(q, k, v, lengths, block_kv=block_kv)
+
+
+# ================================================================== selective scan
+
+def _mamba_update(x_t, dt_t, a, b_t, c_t, d_skip, h):
+    """One step of the Mamba recurrence in f32. x_t, dt_t: [B, Di]; a: [Di, Ds]
+    (= -exp(a_log)); b_t, c_t: [B, Ds]; d_skip: [Di]; h: [B, Di, Ds].
+    Returns (y_t [B, Di] f32, h_t)."""
+    decay = torch.exp(dt_t[..., None] * a)                             # [B,Di,Ds]
+    h = decay * h + (dt_t * x_t)[..., None] * b_t[:, None, :]
+    y = torch.einsum("bds,bs->bd", h, c_t) + x_t * d_skip
+    return y, h
+
+
+def selective_scan(x, dt, a_log, b, c, d_skip, h0=None):
+    """Mamba selective scan, one step at a time.
+
+    x, dt: [B, S, Di]; a_log: [Di, Ds]; b, c: [B, S, Ds]; d_skip: [Di];
+    h0: optional [B, Di, Ds]. Returns (y [B, S, Di] in x's dtype, h_final
+    [B, Di, Ds] f32). Recurrence, in f32:
+    h_t = exp(dt_t * A) h_{t-1} + (dt_t * x_t) B_t ; y_t = C_t . h_t + D x_t,
+    A = -exp(a_log). The JAX reference takes chunks of an associative scan;
+    this loop is the same sum in the order the recurrence states, and it
+    stays finite where the decay underflows to 0.
+    """
+    B, S, Di = x.shape
+    Ds = a_log.shape[1]
+    a = -torch.exp(a_log.float())
+    d = d_skip.float()
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    h = (torch.zeros((B, Di, Ds), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    ys = []
+    for t in range(S):
+        y_t, h = _mamba_update(xf[:, t], dtf[:, t], a, bf[:, t], cf[:, t], d, h)
+        ys.append(y_t)
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def mamba_step(x_t, dt_t, a_log, b_t, c_t, d_skip, h):
+    """One decode step. x_t, dt_t: [B, Di]; b_t, c_t: [B, Ds]; h: [B, Di, Ds].
+    Returns (y [B, Di] in x_t's dtype, h_new [B, Di, Ds] f32)."""
+    y, h_new = _mamba_update(x_t.float(), dt_t.float(), -torch.exp(a_log.float()),
+                             b_t.float(), c_t.float(), d_skip.float(), h.float())
+    return y.to(x_t.dtype), h_new
 
 
 # ========================================================================== mLSTM

@@ -1,18 +1,22 @@
-"""Recurrent sequence mixers of xLSTM: mLSTM and sLSTM (port of the xLSTM half
-of ``repro.models.ssm``; the Mamba half comes with jamba's slice).
+"""State-space and recurrent sequence mixers: Mamba (jamba), mLSTM and sLSTM
+(xLSTM). Port of ``repro.models.ssm``.
 
-Both expose a full-sequence form (prefill, returns the final state) and a
-single-step form (decode). The full-sequence mLSTM goes through
-``ops.mlstm`` (the chunkwise kernel on CUDA tensors); the decode step runs
-the plain ``ref.mlstm_step``, as the JAX package does, as one
-``ops.mlstm_step`` node that updates the state (C, n, m) in place. The
-sLSTM time loop, prompt or single step, is one ``ops.slstm_scan`` node (the
-plain per-step cell, which the JAX package runs as a ``lax.scan``), so an
-exported program holds one node per sLSTM block and step instead of the
-unrolled cells.
+Each exposes a full-sequence form (prefill, returns the final state) and a
+single-step form (decode). The full-sequence Mamba goes through
+``ops.selective_scan`` (the hand-written scan kernel on CUDA tensors); its
+decode step runs the plain ``ref.mamba_step``, as the JAX package does, as
+one ``ops.mamba_step`` node that updates the state in place. The
+full-sequence mLSTM goes through ``ops.mlstm`` (the chunkwise kernel on CUDA
+tensors); the decode step runs the plain ``ref.mlstm_step``, as the JAX
+package does, as one ``ops.mlstm_step`` node that updates the state
+(C, n, m) in place. The sLSTM time loop, prompt or single step, is one
+``ops.slstm_scan`` node (the plain per-step cell, which the JAX package runs
+as a ``lax.scan``), so an exported program holds one node per sLSTM block
+and step instead of the unrolled cells.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -40,6 +44,87 @@ def _causal_depthwise_conv(x, w, b, history=None):
         out = out + xin[:, j:j + S].float() * wf[j]
     new_history = xin[:, -(cw - 1):] if cw > 1 else history
     return out.to(x.dtype) + b.to(x.dtype), new_history
+
+
+# ============================================================================ Mamba
+
+def mamba_dims(cfg):
+    """(d_inner, dt_rank, d_state, d_conv)."""
+    s = cfg.ssm
+    return s.expand * cfg.d_model, max(cfg.d_model // 16, 8), s.d_state, s.d_conv
+
+
+def mamba_specs(cfg, dtype, stack: Tuple[int, ...] = ()):
+    d = cfg.d_model
+    d_in, dtr, ds, cw = mamba_dims(cfg)
+    sa = ("layers",) * len(stack)
+
+    def a_init(gen, shape, dt):
+        # S4D-real init: A_log = log(1..ds) per channel
+        base = torch.log(torch.arange(1, ds + 1, dtype=torch.float32, device=gen.device))
+        return base.expand(shape).to(dt).contiguous()
+
+    return {
+        "in_proj": dense_spec(d, 2 * d_in, ("embed", "ffn"), dtype, stack=stack),
+        "conv_w": ParamSpec((*stack, cw, d_in), dtype, (*sa, "conv", "ffn"),
+                            normal_init(1.0, fan_in_axis=len(stack))),
+        "conv_b": bias_spec(d_in, "ffn", dtype, stack=stack),
+        "x_proj": dense_spec(d_in, dtr + 2 * ds, ("ffn", None), dtype, stack=stack),
+        "dt_proj": dense_spec(dtr, d_in, (None, "ffn"), dtype, stack=stack),
+        "dt_bias": ParamSpec((*stack, d_in), torch.float32, (*sa, "ffn"),
+                             const_init(math.log(math.expm1(0.01)))),
+        "a_log": ParamSpec((*stack, d_in, ds), torch.float32, (*sa, "ffn", None), a_init),
+        "d_skip": ParamSpec((*stack, d_in), torch.float32, (*sa, "ffn"), ones_init()),
+        "out_proj": dense_spec(d_in, d, ("ffn", "embed"), dtype, stack=stack),
+    }
+
+
+def _mamba_dt(p, dt_r):
+    """softplus(dt_r @ dt_proj + dt_bias) in f32."""
+    return F.softplus(torch.matmul(dt_r, p["dt_proj"]).float() + p["dt_bias"])
+
+
+def mamba_forward(cfg, p: dict, x: torch.Tensor, state=None):
+    """x: [B,S,d] -> (y [B,S,d], (conv_state [B,cw-1,di], ssm_state [B,di,ds] f32))."""
+    d_in, dtr, ds, cw = mamba_dims(cfg)
+    conv_state, ssm_state = state if state is not None else (None, None)
+    xi, z = torch.matmul(x, p["in_proj"]).split(d_in, dim=-1)
+    xc, new_conv = _causal_depthwise_conv(xi, p["conv_w"], p["conv_b"], conv_state)
+    xc = F.silu(xc)
+    proj = torch.matmul(xc, p["x_proj"])
+    dt = _mamba_dt(p, proj[..., :dtr])
+    y, h_final = ops.selective_scan(xc, dt, p["a_log"], proj[..., dtr:dtr + ds],
+                                    proj[..., dtr + ds:], p["d_skip"], h0=ssm_state)
+    y = y * F.silu(z)
+    return torch.matmul(y, p["out_proj"]), (new_conv, h_final)
+
+
+def mamba_step(cfg, p: dict, x_t: torch.Tensor, state):
+    """x_t: [B,1,d]; state (conv [B,cw-1,di], ssm [B,di,ds] f32) -> (y [B,1,d],
+    (conv', ssm)): the ssm state is the given tensor, updated in place; conv'
+    is a new tensor."""
+    d_in, dtr, ds, cw = mamba_dims(cfg)
+    conv_state, ssm_state = state
+    xi, z = torch.matmul(x_t, p["in_proj"]).split(d_in, dim=-1)      # [B,1,di]
+    window = torch.cat([conv_state.to(xi.dtype), xi], dim=1)          # [B,cw,di]
+    xc = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"].to(xi.dtype)) + p["conv_b"])
+    proj = torch.matmul(xc, p["x_proj"])
+    dt = _mamba_dt(p, proj[:, :dtr])
+    y = ops.mamba_step(xc, dt, p["a_log"], proj[:, dtr:dtr + ds], proj[:, dtr + ds:],
+                       p["d_skip"], ssm_state)
+    y = y * F.silu(z[:, 0])
+    return torch.matmul(y, p["out_proj"])[:, None], (window[:, 1:], ssm_state)
+
+
+def mamba_state_specs(cfg, batch: int, stack: Tuple[int, ...] = ()):
+    d_in, _, ds, cw = mamba_dims(cfg)
+    sa = ("layers",) * len(stack)
+    return {
+        "conv": ParamSpec((*stack, batch, cw - 1, d_in), torch_dtype(cfg.dtype),
+                          (*sa, "batch", None, "ffn"), zeros_init()),
+        "ssm": ParamSpec((*stack, batch, d_in, ds), torch.float32,
+                         (*sa, "batch", "ffn", None), zeros_init()),
+    }
 
 
 # ============================================================================ mLSTM

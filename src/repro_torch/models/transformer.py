@@ -1,11 +1,12 @@
-"""Layer stacks of the uniform dense and xLSTM families (port of
+"""Layer stacks of the uniform dense, jamba and xLSTM families (port of
 ``repro.models.transformer``).
 
-The JAX package scans over the stacked ``[L, ...]`` (xLSTM: ``[P, ...]``
-periods) layer leaves; here a Python loop walks views of the same leaves
-(``leaf[i]`` is a view, nothing is copied). The ``stack_*`` dispatchers pick
-the family; the other families (MoE, jamba, encoder-decoder, the vision
-frontend) are later slices and raise ``NotImplementedError``.
+The JAX package scans over the stacked ``[L, ...]`` (jamba, xLSTM:
+``[P, ...]`` periods) layer leaves; here a Python loop walks views of the
+same leaves (``leaf[i]`` is a view, nothing is copied). The ``stack_*``
+dispatchers pick the family; the other families (MoE on the uniform stack,
+encoder-decoder, the vision frontend) are later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from repro_torch import pytree
 from repro_torch.dtypes import torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
     ParamSpec, apply_mlp, apply_norm, mlp_specs, norm_specs, positional_tables,
@@ -31,15 +33,16 @@ def _split(tree) -> list:
 
 def split_layers(sp) -> dict:
     """``sp`` with its stacked ``layers`` leaves cut into a list of per-layer
-    views (no copy); for the xLSTM stack also each period's blocks. The layer
-    loops take either form; a traced program that runs many passes cuts once
-    instead of once per pass."""
+    views (no copy); for the jamba and xLSTM stacks also each period's
+    blocks. The layer loops take either form; a traced program that runs many
+    passes cuts once instead of once per pass."""
     layers = sp["layers"]
     if isinstance(layers, list):
         return sp
     per = _split(layers)
-    if "mlstm" in layers:                           # xLSTM periods: [P, period, ...]
-        per = [{**pp, "ln": _split(pp["ln"]), "mlstm": _split(pp["mlstm"])} for pp in per]
+    if "mlstm" in layers or "mamba" in layers:      # periods: [P, n, ...] block leaves
+        blocks = [key for key in _PERIOD_BLOCKS if key in layers]
+        per = [{**pp, **{key: _split(pp[key]) for key in blocks}} for pp in per]
     return {**sp, "layers": per}
 
 
@@ -48,8 +51,12 @@ def _layer(sp, i: int):
     return layers[i] if isinstance(layers, list) else _slice(layers, i)
 
 
+# the per-block leaves of a period stack, [P, n, ...]: xLSTM's, then jamba's
+_PERIOD_BLOCKS = ("ln", "mlstm", "ln_mix", "ln_ffn", "mamba", "moe", "mlp")
+
+
 def _block(tree, i: int):
-    """Block ``i`` of a period's ``ln`` / ``mlstm`` (stacked, or split)."""
+    """Block ``i`` of a period's per-block leaves (stacked, or split)."""
     return tree[i] if isinstance(tree, list) else _slice(tree, i)
 
 
@@ -192,6 +199,115 @@ def stack_page_pool_specs(cfg, n_pages: int, page_size: int):
     return uniform_page_pool_specs(cfg, n_pages, page_size)
 
 
+# ================================================================= jamba stack
+
+TRAIN_CF = 1.25   # MoE capacity factor (train)
+EVAL_CF = 2.0     # MoE capacity factor (inference)
+
+
+def _jamba_layout(cfg):
+    """(period, P, moe_slots, mlp_slots): P periods of (period - 1) Mamba
+    blocks and one attention block, MoE on every ``moe_every``-th slot."""
+    period = cfg.ssm.attn_every
+    P = cfg.n_layers // period
+    me = cfg.moe.moe_every if cfg.moe else 0
+    moe_slots = [i for i in range(period) if me and i % me == me - 1]
+    mlp_slots = [i for i in range(period) if i not in moe_slots]
+    return period, P, moe_slots, mlp_slots
+
+
+def jamba_specs(cfg, dtype):
+    period, P, moe_slots, mlp_slots = _jamba_layout(cfg)
+    layer = {
+        "ln_mix": norm_specs(cfg, dtype, stack=(P, period)),
+        "ln_ffn": norm_specs(cfg, dtype, stack=(P, period)),
+        "mamba": ssm.mamba_specs(cfg, dtype, stack=(P, period - 1)),
+        "attn": attn.attention_specs(cfg, dtype, stack=(P,)),
+    }
+    if moe_slots:
+        layer["moe"] = moe_mod.moe_specs(cfg, dtype, stack=(P, len(moe_slots)))
+    if mlp_slots:
+        layer["mlp"] = mlp_specs(cfg, dtype,
+                                 d_ff=(cfg.moe.d_ff_dense if cfg.moe else cfg.d_ff),
+                                 stack=(P, len(mlp_slots)))
+    return {"layers": layer}
+
+
+def _jamba_ffn(cfg, pp, i, x, cf, moe_slots, mlp_slots, with_aux):
+    """Slot ``i``'s feed-forward sublayer on the residual ``x`` -> (x', MoE
+    aux loss or None)."""
+    h = apply_norm(cfg, _block(pp["ln_ffn"], i), x)
+    if i in moe_slots:
+        y, aux = moe_mod.moe_forward(cfg, _block(pp["moe"], moe_slots.index(i)), h,
+                                     capacity_factor=cf, with_aux=with_aux)
+        return x + y, aux
+    return x + apply_mlp(cfg, _block(pp["mlp"], mlp_slots.index(i)), h), None
+
+
+def jamba_forward(cfg, sp, x, mode: str):
+    """Returns (x, cache, aux); cache = {"conv", "ssm"} stacked [P, period-1,
+    ...] and {"k", "v"} stacked [P, ...] when mode == "prefill", else None;
+    aux is the MoE layers' summed auxiliary loss when mode == "train", else
+    None (prefill discards it)."""
+    period, P, moe_slots, mlp_slots = _jamba_layout(cfg)
+    train = mode == "train"
+    cf = TRAIN_CF if train else EVAL_CF
+    aux = x.new_zeros((), dtype=torch.float32) if train else None
+    convs, ssms, ks, vs = [], [], [], []
+    for p_i in range(P):
+        pp = _layer(sp, p_i)
+        for i in range(period):
+            h = apply_norm(cfg, _block(pp["ln_mix"], i), x)
+            if i == period - 1:
+                a, (k, v) = attn.attention_full(cfg, pp["attn"], h, None)
+                ks.append(k)
+                vs.append(v)
+            else:
+                a, (cs, hs) = ssm.mamba_forward(cfg, _block(pp["mamba"], i), h)
+                convs.append(cs)
+                ssms.append(hs)
+            x, a_l = _jamba_ffn(cfg, pp, i, x + a, cf, moe_slots, mlp_slots, train)
+            if a_l is not None:
+                aux = aux + a_l
+    if mode != "prefill":
+        return x, None, aux
+    n_mix = period - 1
+    cache = {"conv": torch.stack(convs).unflatten(0, (P, n_mix)),
+             "ssm": torch.stack(ssms).unflatten(0, (P, n_mix)),
+             "k": torch.stack(ks), "v": torch.stack(vs)}
+    return x, cache, aux
+
+
+def jamba_decode(cfg, sp, x_t, cache, pos):
+    """One decode step through every layer; ``cache`` (as prefill returns it,
+    or as :func:`split_cache` cuts it) is updated in place and returned."""
+    period, P, moe_slots, mlp_slots = _jamba_layout(cfg)
+    for p_i in range(P):
+        pp = _layer(sp, p_i)
+        for i in range(period):
+            h = apply_norm(cfg, _block(pp["ln_mix"], i), x_t)
+            if i == period - 1:
+                a, _, _ = attn.attention_decode(cfg, pp["attn"], h, cache["k"][p_i],
+                                                cache["v"][p_i], pos, None)
+            else:
+                conv = cache["conv"][p_i][i]
+                a, (conv2, _) = ssm.mamba_step(cfg, _block(pp["mamba"], i), h,
+                                               (conv, cache["ssm"][p_i][i]))
+                conv.copy_(conv2)                   # the ssm state was updated in place
+            x_t, _ = _jamba_ffn(cfg, pp, i, x_t + a, EVAL_CF, moe_slots, mlp_slots, False)
+    return x_t, cache
+
+
+def jamba_cache_specs(cfg, batch: int, capacity: int):
+    period, P, _, _ = _jamba_layout(cfg)
+    hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    dt = torch_dtype(cfg.dtype)
+    kv_axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+    return {**ssm.mamba_state_specs(cfg, batch, stack=(P, period - 1)),
+            "k": _zeros_spec((P, batch, capacity, nkv, hd), dt, kv_axes),
+            "v": _zeros_spec((P, batch, capacity, nkv, hd), dt, kv_axes)}
+
+
 # ================================================================= xlstm stack
 
 def _xlstm_layout(cfg):
@@ -273,35 +389,56 @@ def xlstm_cache_specs(cfg, batch: int, capacity: int):
 # ================================================================== dispatchers
 
 def stack_specs(cfg, dtype):
-    if family_kind(cfg) == "xlstm":
+    kind = family_kind(cfg)
+    if kind == "jamba":
+        return jamba_specs(cfg, dtype)
+    if kind == "xlstm":
         return xlstm_specs(cfg, dtype)
     return uniform_specs(cfg, dtype)
 
 
 def stack_forward(cfg, sp, x, positions, mode: str):
-    if family_kind(cfg) == "xlstm":
+    """Returns (x, cache); the jamba stack's MoE aux loss is dropped, as the
+    JAX package's prefill drops it."""
+    kind = family_kind(cfg)
+    if kind == "jamba":
+        return jamba_forward(cfg, sp, x, mode)[:2]
+    if kind == "xlstm":
         return xlstm_forward(cfg, sp, x, mode)
     return uniform_forward(cfg, sp, x, positions, mode)
 
 
 def stack_decode(cfg, sp, x_t, cache, pos):
-    if family_kind(cfg) == "xlstm":
+    kind = family_kind(cfg)
+    if kind == "jamba":
+        return jamba_decode(cfg, sp, x_t, cache, pos)
+    if kind == "xlstm":
         return xlstm_decode(cfg, sp, x_t, cache)
     return uniform_decode(cfg, sp, x_t, cache, pos)
 
 
 def split_cache(cfg, inner):
     """The decode state ``inner`` with its stacked leaves cut into per-layer
-    (xLSTM: per-block) views, no copy, so that a traced program of many
-    decode steps cuts once instead of once per step; writes through the views
-    land in the stacked tensors. A K/V cache is returned as it is."""
-    if family_kind(cfg) != "xlstm":
-        return inner
-    return {"mlstm": {key: [list(per) for per in leaf] for key, leaf in inner["mlstm"].items()},
-            "slstm": {key: list(leaf) for key, leaf in inner["slstm"].items()}}
+    (jamba, xLSTM: per-block) views, no copy, so that a traced program of
+    many decode steps cuts once instead of once per step; writes through the
+    views land in the stacked tensors. A uniform K/V cache is returned as it
+    is."""
+    kind = family_kind(cfg)
+    if kind == "jamba":
+        return {"conv": [list(per) for per in inner["conv"]],
+                "ssm": [list(per) for per in inner["ssm"]],
+                "k": list(inner["k"]), "v": list(inner["v"])}
+    if kind == "xlstm":
+        return {"mlstm": {key: [list(per) for per in leaf]
+                          for key, leaf in inner["mlstm"].items()},
+                "slstm": {key: list(leaf) for key, leaf in inner["slstm"].items()}}
+    return inner
 
 
 def stack_cache_specs(cfg, batch: int, capacity: int):
-    if family_kind(cfg) == "xlstm":
+    kind = family_kind(cfg)
+    if kind == "jamba":
+        return jamba_cache_specs(cfg, batch, capacity)
+    if kind == "xlstm":
         return xlstm_cache_specs(cfg, batch, capacity)
     return uniform_cache_specs(cfg, batch, capacity)

@@ -34,7 +34,8 @@ def test_port_sources_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"ops.py", "deploy.py", "boot.py", "chip_smoke.py", "decode.py", "paging.py",
             "cluster.py", "scheduler.py", "resilience.py",
-            "paged_decode_attention.py", "mlstm.py", "ssm.py", "xlstm_1_3b.py"} <= names
+            "paged_decode_attention.py", "mlstm.py", "ssm.py", "xlstm_1_3b.py",
+            "selective_scan.py", "moe.py", "jamba_1_5_large_398b.py"} <= names
 
 
 def test_importing_the_port_builds_nothing_and_loads_no_jax():
@@ -69,6 +70,8 @@ def test_routing_is_by_device_with_no_capability_fallback():
 def test_kernel_impl_on_cpu_tensors_raises():
     q = torch.zeros(1, 4, 2, 32)
     pages, table = torch.zeros(3, 4, 1, 32), torch.zeros(1, 2, dtype=torch.int32)
+    # x, dt [1,4,2]; a_log [2,32]; b, c [1,4,32]; d_skip [2]
+    scan = (q[..., 0], q[..., 0], q[0, 0], q[:, :, 0], q[:, :, 0], q[0, 0, :, 0])
     with ops.impl_scope("kernel"):
         with pytest.raises(RuntimeError, match="CUDA"):
             ops.attention(q, q[:, :, :1], q[:, :, :1])
@@ -78,11 +81,15 @@ def test_kernel_impl_on_cpu_tensors_raises():
             ops.paged_decode_attention(q[:, 0], pages, pages, table, 2)
         with pytest.raises(RuntimeError, match="CUDA"):
             ops.mlstm(q, q, q, q[..., 0], q[..., 0])
-    # and on the CPU, "auto" and "plain" take the plain versions of all four ops
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ops.selective_scan(*scan)
+    # and on the CPU, "auto" and "plain" take the plain versions of all five ops
     for impl in ("auto", "plain"):
         with ops.impl_scope(impl):
             assert ops.paged_decode_attention(q[:, 0], pages, pages, table, 2).shape == (1, 2, 32)
             assert ops.mlstm(q, q, q, q[..., 0], q[..., 0])[0].shape == (1, 4, 2, 32)
+            y, h = ops.selective_scan(*scan)
+            assert y.shape == (1, 4, 2) and h.shape == (1, 2, 32)
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():
@@ -90,6 +97,7 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mlstm as mk
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import selective_scan as ss
     q = torch.zeros(1, 4, 2, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_attention(q, q, q)
@@ -99,10 +107,14 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
         pda.paged_decode_attention(q[:, 0], q, q, torch.zeros(1, 1, dtype=torch.int32), 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         mk.mlstm(q, q, q, q[..., 0], q[..., 0])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ss.selective_scan(q[..., 0], q[..., 0], q[0, 0], q[:, :, 0], q[:, :, 0],
+                          q[0, 0, :, 0])
     assert fa.LAUNCHES.count == 0 and da.LAUNCHES.count == 0 and pda.LAUNCHES.count == 0
-    assert mk.LAUNCHES.count == 0
+    assert mk.LAUNCHES.count == 0 and ss.LAUNCHES.count == 0
     assert set(ops.launch_counts()) == {"flash_attention", "decode_attention",
-                                        "paged_decode_attention", "mlstm"}
+                                        "paged_decode_attention", "mlstm",
+                                        "selective_scan"}
 
 
 def test_cuda_call_without_a_toolkit_raises_instead_of_falling_back(tmp_path, monkeypatch):
@@ -122,4 +134,4 @@ def test_source_hash_covers_every_kernel_source():
     assert len(h) == 16
     names = {p.name for p in _cuda.CSRC.iterdir()}
     assert {"flash_attention.cu", "decode_attention.cu", "paged_decode_attention.cu",
-            "mlstm.cu", "decode_sweep.cuh", "common.cuh"} <= names
+            "mlstm.cu", "selective_scan.cu", "decode_sweep.cuh", "common.cuh"} <= names
