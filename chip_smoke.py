@@ -9,15 +9,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, compute capability, SM count and maximum SM clock; then build
-   the hand-written kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
+   the hand-written kernels from ``src/repro_torch/kernels/csrc`` with nvcc
+   and log what ptxas reports (registers, shared memory, spills) for the
+   flash and mLSTM kernels.
 2. Kernels vs plain: each kernel against its plain PyTorch version on CUDA
    tensors, at the paths' shapes and at edge cases (ragged lengths,
    q_offset, bidirectional, length 0 and S, NaN past length, jamba's 64/8
-   heads for flash and decode, timed too; for the paged kernel also a second page
+   heads for flash and decode and the decode tier's admit (B = 1) for
+   flash, timed too; for flash also rows that fill no 64-row block, Skv no
+   multiple of the key tile, a diagonal tile partly visible at q_offset, MHA
+   and bf16 at D = 32, and the host cost of its TMA tensor maps; for the
+   paged kernel also a second page
    layout, bit-identical, NaN in the null and unmapped pages, f32, MQA/GQA
    at D=64, and bit-identical to the contiguous kernel on the same logical
    cache; for the mLSTM kernel padding, S shorter than a chunk, a carried
-   state, f32, the reduced dims and large input gates; for the selective
+   state, f32, the reduced dims (with a carried state in bf16), large input
+   gates and S one step past one and two chunks; for the selective
    scan ragged S, S = 1, S past a chunk, a carried state, f32, the reduced
    dims, a channel count that is no multiple of the block, and decays that
    underflow to 0), with kernel / plain / library times (CUDA events) and
@@ -129,6 +136,23 @@ def bound(nbytes: float, flops: float, flop_rate: float):
 
 def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
+
+
+def ptxas_lines(lib_path, sources=("flash_attention.cu", "mlstm.cu")) -> list:
+    """The ``ptxas -v`` lines (entry, registers, shared memory, spills) of
+    ``sources`` in the build log next to the library."""
+    path = Path(lib_path).parent / "build.log"
+    if not path.exists():
+        return ["no build.log beside the library"]
+    out, keep = [], False
+    for line in path.read_text().splitlines():
+        if line.startswith("== "):
+            keep = any(src in line for src in sources)
+            if keep:
+                out.append(line)
+        elif keep and any(w in line for w in ("Compiling entry", "registers", "spill")):
+            out.append(line.strip())
+    return out
 
 
 # --------------------------------------------------------------------- phase 2
@@ -794,14 +818,17 @@ def main() -> int:
     _cuda.library()
     log(f"kernels: {lib_path} ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc in this run: {_cuda.build_seconds:.2f} s)")
+    for line in ptxas_lines(lib_path):
+        log(f"ptxas: {line}")
 
     # ---- phase 2: kernels vs plain
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_main = (4, 512, 512, 24, 8, 128, True, 0, "bfloat16")
     jamba_flash = (4, 512, 512, 64, 8, 128, True, 0, "bfloat16")    # jamba's prefill, timed too
     jamba_decode = (4, 528, 64, 8, 128, [528] * 4, "bfloat16")      # jamba's decode, timed too
+    flash_admit = (1, 512, 512, 24, 8, 128, True, 0, "bfloat16")    # the decode tier's admit, timed
     flash_cases = [flash_main,
-                   (1, 512, 512, 24, 8, 128, True, 0, "bfloat16"),    # the decode tier's admit
+                   flash_admit,
                    (2, 77, 77, 24, 8, 128, True, 0, "bfloat16"),      # ragged
                    (2, 64, 192, 24, 8, 128, True, 128, "bfloat16"),   # q_offset
                    (2, 128, 128, 24, 8, 128, False, 0, "bfloat16"),   # bidirectional
@@ -809,7 +836,17 @@ def main() -> int:
                    (2, 200, 200, 4, 2, 32, True, 0, "float32"),
                    (2, 130, 130, 24, 8, 128, False, 0, "float32"),
                    jamba_flash,
-                   (2, 100, 100, 64, 8, 128, True, 0, "float32")]
+                   (2, 100, 100, 64, 8, 128, True, 0, "float32"),
+                   # the wgmma kernel's tiling: rows (Sq G) that fill no whole 64-row
+                   # CTA, Skv no multiple of the 64-key tile, a diagonal tile partly
+                   # visible at q_offset, MHA at D = 128, and the mma.sync kernel's
+                   # D = 32 in bf16
+                   (2, 45, 45, 24, 8, 128, True, 0, "bfloat16"),
+                   (2, 100, 150, 24, 8, 128, False, 0, "bfloat16"),
+                   (2, 64, 100, 24, 8, 128, True, 36, "bfloat16"),
+                   (2, 130, 130, 8, 8, 128, True, 0, "bfloat16"),
+                   (1, 33, 70, 64, 8, 128, True, 37, "bfloat16"),
+                   (2, 77, 77, 4, 2, 32, True, 0, "bfloat16")]
     decode_main = (4, 528, 24, 8, 128, [528, 528, 528, 528], "bfloat16")
     decode_cases = [decode_main,
                     (4, 528, 24, 8, 128, [0, 528, 300, 517], "bfloat16"),
@@ -836,7 +873,10 @@ def main() -> int:
                    (2, 150, 2, 512, 1024, "float32", 1.0, 64),
                    (2, 130, 4, 32, 64, "float32", 1.0, 0),           # the reduced dims
                    (2, 70, 4, 32, 64, "bfloat16", 1.0, 33),
-                   (2, 192, 4, 512, 1024, "bfloat16", 30.0, 0)]      # large input gates
+                   (2, 192, 4, 512, 1024, "bfloat16", 30.0, 0),      # large input gates
+                   (2, 65, 4, 512, 1024, "bfloat16", 1.0, 0),        # one step past a chunk
+                   (2, 129, 4, 512, 1024, "bfloat16", 1.0, 0),
+                   (2, 200, 2, 32, 64, "bfloat16", 1.0, 129)]        # reduced dims, carried
     # B, S, Di, Ds, dtype, split, dt_scale; the first is jamba-1.5-large's prefill
     scan_cases = [(4, 512, 16384, 16, "bfloat16", 0, 1.0),
                   (2, 100, 16384, 16, "bfloat16", 0, 1.0),        # ragged S
@@ -849,6 +889,18 @@ def main() -> int:
                   (2, 64, 1000, 16, "bfloat16", 0, 1.0),          # Di not a multiple of 128
                   (2, 96, 1000, 4, "float32", 0, 1.0),
                   (2, 64, 2048, 16, "float32", 0, 1e4)]           # every decay underflows to 0
+    # what encoding the flash kernel's three TMA tensor maps costs the host per call
+    qm = torch.empty(flash_main[:2] + flash_main[3:4] + flash_main[5:6], dtype=torch.bfloat16,
+                     device="cuda")
+    km = torch.empty(flash_main[:1] + flash_main[2:3] + flash_main[4:6], dtype=torch.bfloat16,
+                     device="cuda")
+    map_us = _cuda.library().repro_flash_tensor_map_us(
+        qm.data_ptr(), km.data_ptr(), km.data_ptr(), *flash_main[:6], 1000)
+    log(f"flash tensor maps at the path's shape: {map_us:.3f} us of host time per call "
+        "to encode q, k, v (mean of 1000)")
+    del qm, km
+    timed_extra = {id(jamba_flash): "jamba's shape", id(jamba_decode): "jamba's shape",
+                   id(flash_admit): "the decode tier's admit shape"}
     results = {}
     for name, check, cases in (
             ("flash_attention",
@@ -860,8 +912,7 @@ def main() -> int:
             ("mlstm", lambda c, t: check_mlstm(torch, mk, ref, gen, c, t), mlstm_cases),
             ("selective_scan",
              lambda c, t: check_scan(torch, F, ss, ref, gen, c, t, exp_per_s), scan_cases)):
-        rows = [check(c, i == 0 or c is jamba_flash or c is jamba_decode)
-                for i, c in enumerate(cases)]
+        rows = [check(c, i == 0 or id(c) in timed_extra) for i, c in enumerate(cases)]
         for r in rows:
             extra = "".join(f" {k} {r[k]}" for k in ("layout_bitwise", "vs_contiguous_bitwise",
                                                      "vs_contiguous_max_abs_err",
@@ -872,14 +923,14 @@ def main() -> int:
             log(f"{name} {r['case']}: max_abs_err {r['max_abs_err']:.3g}{extra} "
                 f"{'ok' if r['ok'] else 'FAIL'}")
         main = rows[0]
-        for r in rows:
+        for c, r in zip(cases, rows):
             if "ms" not in r:
                 continue
             library = "none (no single PyTorch call)" if r["library_ms"] is None \
                 else f"{r['library_ms']:.4f}"
             split = "".join(f" {k} {r[k]:.4f}" for k in ("bound_bytes_ms", "bound_exp_ms")
                             if k in r)
-            where = "the path's shape" if r is main else f"jamba's shape {r['case']}"
+            where = "the path's shape" if r is main else f"{timed_extra[id(c)]} {r['case']}"
             log(f"{name} at {where}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
                 f"library_ms {library} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}){split}")
         bad = [r["case"] for r in rows if not r["ok"]]

@@ -3,7 +3,10 @@
 Route: every source is compiled by ``nvcc`` for ``sm_90a`` into an object
 file, all sources at once in parallel processes, and the objects are linked
 into one shared library with a plain C interface that ``ctypes`` loads. Nothing
-includes PyTorch's headers, so a build takes seconds, not minutes.
+includes PyTorch's headers, so a build takes seconds, not minutes. The flash
+kernel's TMA tensor maps come from the driver API's ``cuTensorMapEncodeTiled``,
+which the C side reaches through the runtime's ``cudaGetDriverEntryPoint``, so
+the link needs no ``-lcuda`` and the flags are unchanged.
 
 The build happens at first use, never at import: the CPU tests import every
 module on a machine with no ``nvcc``. It goes into ``build/kernels/<hash>/``
@@ -125,6 +128,8 @@ def library() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.repro_flash_attention.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
             lib.repro_flash_attention.restype = i32
+            lib.repro_flash_tensor_map_us.argtypes = [ptr] * 3 + [i32] * 7
+            lib.repro_flash_tensor_map_us.restype = ctypes.c_double
             lib.repro_decode_attention.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
             lib.repro_decode_attention.restype = i32
             lib.repro_paged_decode_attention.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]

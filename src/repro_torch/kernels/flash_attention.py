@@ -1,9 +1,18 @@
-"""Prefill attention: the hand-written Hopper kernel and its plain version.
+"""Prefill attention: the hand-written Hopper kernels and their plain version.
 
-Port of ``repro.kernels.flash_attention`` (the Pallas TPU kernel
-``_fa_kernel``). The kernels are in ``csrc/flash_attention.cu`` (its header
-says how they are laid out and what bounds them): a tensor-core kernel for
-bf16, the serve path's dtype, and an f32 SIMT kernel for f32 inputs.
+Port of ``repro.kernels.flash_attention``, the Pallas TPU kernel
+``_fa_kernel``, which streams K/V blocks through VMEM for one query head and
+block per grid step. The kernels are in ``csrc/flash_attention.cu``, whose
+header says how they are laid out:
+
+- bf16 at head dims 64 and 128 (the serve paths): a producer warp feeds K/V
+  tiles by TMA into a two-stage ring; one warpgroup runs Q K^T and P V with
+  ``wgmma`` (P from registers, V through the transpose bit), two CTAs per SM.
+  At llama3.2-3b's prefill shape the call's bytes bound it on the H100
+  (they take longer than its products at the tensor-core peak); PERF.md has
+  the kernel's time against that bound and against the library call.
+- bf16 at head dim 32: the first ``mma.sync`` kernel; f32: a SIMT kernel.
+
 :func:`flash_attention` is their wrapper, which checks the inputs, allocates
 the output, launches on the current CUDA stream and counts the launch. The
 plain version is ``ref.flash_attention``, re-exported here as

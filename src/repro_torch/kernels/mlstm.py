@@ -1,9 +1,15 @@
-"""Chunkwise mLSTM: the hand-written Hopper kernel and its plain version.
+"""Chunkwise mLSTM: the hand-written Hopper kernels and their plain version.
 
-Port of ``repro.kernels.mlstm`` (the Pallas TPU kernel ``_mlstm_kernel``).
-The kernel is ``csrc/mlstm.cu`` (its header says how it is laid out and what
-bounds it); :func:`mlstm` is its wrapper, which checks the inputs, allocates
-the outputs, launches on the current CUDA stream and counts the launch. The
+Port of ``repro.kernels.mlstm``, the Pallas TPU kernel ``_mlstm_kernel``,
+which keeps a head's (C, n, m) in VMEM across a sequential grid of chunks.
+The kernels are in ``csrc/mlstm.cu`` (its header says how they are laid out
+and what bounds them). For bf16 inputs, the serve path's dtype, the three
+chunk products run on the tensor cores; the f32 operands among them (the
+state C, k scaled by its gate weight, the decay-weighted scores) are split
+into bf16 hi + lo parts and go through two products each, so the f32 state
+keeps its f32 tolerance. f32 inputs take a kernel on the f32 SIMT pipes.
+:func:`mlstm` is their wrapper, which checks the inputs, allocates the
+outputs, launches on the current CUDA stream and counts the launch. The
 plain version is ``ref.mlstm_chunked``, re-exported as :func:`mlstm_plain`.
 
 Unlike the Pallas entry, which sends a call that carries a state to the

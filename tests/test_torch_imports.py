@@ -2,6 +2,7 @@
 it imports with no nvcc and no card; a CUDA call never falls back to the plain
 version, and a CPU call never needs the kernels."""
 import ast
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -134,4 +135,34 @@ def test_source_hash_covers_every_kernel_source():
     assert len(h) == 16
     names = {p.name for p in _cuda.CSRC.iterdir()}
     assert {"flash_attention.cu", "decode_attention.cu", "paged_decode_attention.cu",
-            "mlstm.cu", "selective_scan.cu", "decode_sweep.cuh", "common.cuh"} <= names
+            "mlstm.cu", "selective_scan.cu", "decode_sweep.cuh", "common.cuh",
+            "hopper.cuh"} <= names
+
+
+def test_chip_smoke_logs_the_ptxas_lines_of_the_redesigned_kernels(tmp_path):
+    """chip_smoke.py prints the registers, shared memory and spills that
+    ptxas reports for flash_attention.cu and mlstm.cu, and only for them."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    (tmp_path / "build.log").write_text(
+        "== decode_attention.cu (rc 0)\n"
+        "ptxas info    : Compiling entry function 'dec' for 'sm_90a'\n"
+        "ptxas info    : Used 40 registers\n"
+        "== flash_attention.cu (rc 0)\n"
+        "ptxas info    : Compiling entry function 'fa' for 'sm_90a'\n"
+        "ptxas info    : Function properties for fa\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 167 registers, used 1 barriers\n"
+        "ptxas info    : Compile time = 76.058 ms\n"
+        "== mlstm.cu (rc 0)\n"
+        "ptxas info    : Used 231 registers, used 1 barriers\n")
+    lines = chip_smoke.ptxas_lines(tmp_path / "librepro_kernels.so")
+    assert lines == ["== flash_attention.cu (rc 0)",
+                     "ptxas info    : Compiling entry function 'fa' for 'sm_90a'",
+                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                     "ptxas info    : Used 167 registers, used 1 barriers",
+                     "== mlstm.cu (rc 0)",
+                     "ptxas info    : Used 231 registers, used 1 barriers"]
+    assert chip_smoke.ptxas_lines(tmp_path / "missing" / "lib.so") == [
+        "no build.log beside the library"]
