@@ -11,25 +11,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions, compute capability, SM count and maximum SM clock; then build
    the hand-written kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    and log what ptxas reports (registers, shared memory, spills) for the
-   flash and mLSTM kernels.
+   flash, mLSTM, decode and paged decode kernels.
 2. Kernels vs plain: each kernel against its plain PyTorch version on CUDA
    tensors, at the paths' shapes and at edge cases (ragged lengths,
    q_offset, bidirectional, length 0 and S, NaN past length, jamba's 64/8
    heads for flash and decode and the decode tier's admit (B = 1) for
    flash, timed too; for flash also rows that fill no 64-row block, Skv no
    multiple of the key tile, a diagonal tile partly visible at q_offset, MHA
-   and bf16 at D = 32, and the host cost of its TMA tensor maps; for the
-   paged kernel also a second page
-   layout, bit-identical, NaN in the null and unmapped pages, f32, MQA/GQA
-   at D=64, and bit-identical to the contiguous kernel on the same logical
-   cache; for the mLSTM kernel padding, S shorter than a chunk, a carried
+   and bf16 at D = 32, and the host cost of its TMA tensor maps; for both
+   decode kernels every group size of the registered configs (G = 5, 6, 7,
+   12 at D = 128 in bf16 and f32), two row tiles of heads (G = 17), lengths
+   at the edges of the 64-key splits, a rerun bit-identical, and the plain
+   version in the kernels' split order beside the plain one; for the paged
+   kernel also a second page layout, bit-identical, NaN in the null and
+   unmapped pages, f32, MQA/GQA at D=64, page sizes 8 and 32, and in every
+   case bit-identical to the contiguous kernel on the same logical cache;
+   for the mLSTM kernel padding, S shorter than a chunk, a carried
    state, f32, the reduced dims (with a carried state in bf16), large input
    gates and S one step past one and two chunks; for the selective
    scan ragged S, S = 1, S past a chunk, a carried state, f32, the reduced
    dims, a channel count that is no multiple of the block, and decays that
-   underflow to 0), with kernel / plain / library times (CUDA events) and
-   the least time the card could take (``bound_ms``; for the scan the
-   larger of its bytes and its exponentials at the SM clock).
+   underflow to 0), with kernel / plain / library times (CUDA events
+   around back-to-back calls: ``ms``, ``plain_ms``, ``library_ms``), the
+   device alone (``device_ms``, ``library_device_ms``: 200 calls captured
+   in one CUDA graph and replayed), the wrapper's host time per call
+   (``host_us``), and the least time the card could take (``bound_ms``;
+   for the scan the larger of its bytes and its exponentials at the SM
+   clock).
 3. Path: ``deploy`` full-width llama3.2-3b (bf16, its depth cut to 8 of
    28 layers for the time limit, random weights from the spec's seed) on the
    GPU, then serve 2 cold requests through the ``unikernel`` driver (boot ->
@@ -87,6 +95,7 @@ BF16_FLOP_PER_S = 989e12            # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12              # f32 outside the tensor cores
 MUFU_PER_CLOCK_PER_SM = 16          # exponentials (ex2) per clock per SM, Hopper
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+GRAPH_CALLS = 200                   # wrapper calls captured in one CUDA graph (device_ms)
 
 LLAMA_LAYERS = 8                    # of 28: the llama paths' depth, cut for the time limit
 LLAMA_ARCH = f"llama3.2-3b:{LLAMA_LAYERS}L"
@@ -129,6 +138,57 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, calls: int = GRAPH_CALLS, replays: int = 3) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph (their allocations come from the graph's pool), the graph replayed
+    ``replays`` times between CUDA events, so no host time is in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def host_us(torch, fn, calls: int = GRAPH_CALLS) -> float:
+    """Host time per call of ``fn`` (the wrapper's checks, allocations and
+    launches) with the device left to run behind."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def timings(torch, kernel, iters: int, plain, plain_iters: int, library=None) -> dict:
+    """A timed row's times: ``ms`` (CUDA events around ``iters`` back-to-back
+    wrapper calls), ``device_ms`` (graph replay), the wrapper's ``host_us``,
+    ``plain_ms``, and the one PyTorch call's ``library_ms`` and
+    ``library_device_ms`` (None where there is none)."""
+    row = {"ms": time_ms(torch, kernel, iters), "device_ms": graph_ms(torch, kernel),
+           "host_us": host_us(torch, kernel), "plain_ms": time_ms(torch, plain, plain_iters)}
+    row["library_ms"] = None if library is None else time_ms(torch, library, iters)
+    row["library_device_ms"] = None if library is None else graph_ms(torch, library)
+    return row
+
+
 def bound(nbytes: float, flops: float, flop_rate: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -138,7 +198,8 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def ptxas_lines(lib_path, sources=("flash_attention.cu", "mlstm.cu")) -> list:
+def ptxas_lines(lib_path, sources=("flash_attention.cu", "mlstm.cu", "decode_attention.cu",
+                                    "paged_decode_attention.cu")) -> list:
     """The ``ptxas -v`` lines (entry, registers, shared memory, spills) of
     ``sources`` in the build log next to the library."""
     path = Path(lib_path).parent / "build.log"
@@ -174,13 +235,12 @@ def check_flash(torch, F, fa, ref, gen, case, timed: bool):
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         rate = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
         row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * B * Hq * D * pairs, rate)
-        row["ms"] = time_ms(torch, lambda: fa.flash_attention(
-            q, k, v, causal=causal, q_offset=q_offset), 50)
-        row["plain_ms"] = time_ms(torch, lambda: ref.flash_attention(
-            q, k, v, causal=causal, q_offset=q_offset), 5)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True), 50)
+        row.update(timings(
+            torch, lambda: fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset), 50,
+            lambda: ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset), 5,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                   enable_gqa=True)))
     return row
 
 
@@ -195,23 +255,30 @@ def check_decode(torch, F, da, ref, gen, case, timed: bool):
         kc[b, n:] = float("nan")
         vc[b, n:] = float("nan")
     out = da.decode_attention(q, kc, vc, length)
+    again = da.decode_attention(q, kc, vc, length)
     exp = ref.decode_attention(q, kc, vc, length)
+    split_order = ref.decode_attention_splits(q, kc, vc, length)
     torch.cuda.synchronize()
     err = (out.float() - exp.float()).abs().max().item()
+    split_err = (out.float() - split_order.float()).abs().max().item()
     zero_rows_exact = all(bool((out[b] == 0).all()) for b, n in enumerate(lengths) if n == 0)
-    ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype] and zero_rows_exact
-    row = {"case": [B, S, Hq, Hkv, D, list(lengths), dtype], "max_abs_err": err, "ok": ok}
+    rerun_bitwise = bool(torch.equal(out, again))
+    ok = bool(torch.isfinite(out).all()) and max(err, split_err) <= TOL[dtype] and \
+        zero_rows_exact and rerun_bitwise
+    row = {"case": [B, S, Hq, Hkv, D, list(lengths), dtype], "max_abs_err": err,
+           "vs_split_order_max_abs_err": split_err, "rerun_bitwise": rerun_bitwise, "ok": ok}
     if timed:
         live = sum(min(n, S) for n in lengths)
         nbytes = (2 * q.numel() + 2 * live * Hkv * D) * q.element_size() + 4 * B
         rate = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
         row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * Hq * D * live, rate)
-        row["ms"] = time_ms(torch, lambda: da.decode_attention(q, kc, vc, length), 200)
-        row["plain_ms"] = time_ms(torch, lambda: ref.decode_attention(q, kc, vc, length), 20)
         mask = (torch.arange(S, device="cuda")[None, :] < length[:, None])[:, None, None, :]
         qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-        row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), 200)
+        row.update(timings(
+            torch, lambda: da.decode_attention(q, kc, vc, length), 200,
+            lambda: ref.decode_attention(q, kc, vc, length), 20,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   enable_gqa=True)))
     return row
 
 
@@ -240,10 +307,9 @@ def paged_layout(torch, kc, vc, lengths, page_size, null_fill, perm_seed):
 
 def check_paged(torch, F, pda, da, ref, gen, case, timed: bool):
     """The paged kernel against its plain version; the same logical cache under
-    another page layout must give bit-identical output; NaN past each length
-    (in the last page, in unmapped pages and in the null page) must not leak;
-    length-0 rows are exactly 0. At the path's shape (``timed``) also against
-    the contiguous decode kernel on the same logical cache."""
+    another page layout, and through the contiguous decode kernel, must give
+    bit-identical output; NaN past each length (in the last page, in unmapped
+    pages and in the null page) must not leak; length-0 rows are exactly 0."""
     B, page_size, mp, Hq, Hkv, D, lengths, dtype = case
     dt = getattr(torch, dtype)
     S = mp * page_size
@@ -262,27 +328,23 @@ def check_paged(torch, F, pda, da, ref, gen, case, timed: bool):
     torch.cuda.synchronize()
     err = (out.float() - exp.float()).abs().max().item()
     layout_bitwise = bool(torch.equal(out, out2))
+    # the two kernels share one split and merge whose order depends only on
+    # logical positions, so the paged kernel must give the contiguous one's bits
+    contig = da.decode_attention(q, kc, vc, length)
+    torch.cuda.synchronize()
+    vs_contiguous_bitwise = bool(torch.equal(out, contig))
     zero_rows_exact = all(bool((out[b] == 0).all()) for b, n in enumerate(lengths) if n == 0)
     ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype] and zero_rows_exact \
-        and layout_bitwise
+        and layout_bitwise and vs_contiguous_bitwise
     row = {"case": [B, page_size, mp, Hq, Hkv, D, list(lengths), dtype], "max_abs_err": err,
-           "layout_bitwise": layout_bitwise, "ok": ok}
+           "layout_bitwise": layout_bitwise, "vs_contiguous_bitwise": vs_contiguous_bitwise,
+           "vs_contiguous_max_abs_err": (out.float() - contig.float()).abs().max().item(),
+           "ok": ok}
     if timed:
-        contig = da.decode_attention(q, kc, vc, length)
-        torch.cuda.synchronize()
-        row["vs_contiguous_max_abs_err"] = (out.float() - contig.float()).abs().max().item()
-        # the two kernels share one sweep whose order depends only on logical
-        # positions, so the paged kernel must give the contiguous one's bits
-        row["vs_contiguous_bitwise"] = bool(torch.equal(out, contig))
-        row["ok"] = ok and row["vs_contiguous_bitwise"]
         live = sum(min(n, S) for n in lengths)
         nbytes = (2 * q.numel() + 2 * live * Hkv * D) * q.element_size() + 4 * (table.numel() + B)
         rate = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
         row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * Hq * D * live, rate)
-        row["ms"] = time_ms(torch, lambda: pda.paged_decode_attention(q, kp, vp, table, length),
-                            200)
-        row["plain_ms"] = time_ms(torch, lambda: ref.paged_decode_attention(
-            q, kp, vp, table, length), 20)
         # no one PyTorch call computes it: a gather of the chains, then masked SDPA
         mask = (torch.arange(S, device="cuda")[None, :] < length[:, None])[:, None, None, :]
         tl = table.long()
@@ -292,7 +354,9 @@ def check_paged(torch, F, pda, da, ref, gen, case, timed: bool):
             vg = vp[tl].reshape(B, S, Hkv, D).transpose(1, 2)
             return F.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask,
                                                   enable_gqa=True)
-        row["library_ms"] = time_ms(torch, library, 200)
+        row.update(timings(
+            torch, lambda: pda.paged_decode_attention(q, kp, vp, table, length), 200,
+            lambda: ref.paged_decode_attention(q, kp, vp, table, length), 20, library))
     return row
 
 
@@ -343,9 +407,9 @@ def check_mlstm(torch, mk, ref, gen, case, timed: bool):
         flops = 2.0 * (2 * c * c * Dk + c * c * Dv + 2 * c * Dk * Dv) * nchunks * B * H
         rate = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, rate)
-        row["ms"] = time_ms(torch, lambda: mk.mlstm(q, k, v, ig, fg), 20)
-        row["plain_ms"] = time_ms(torch, lambda: ref.mlstm_chunked(q, k, v, ig, fg), 3)
-        row["library_ms"] = None     # no single PyTorch call computes the chunkwise mLSTM
+        # no single PyTorch call computes the chunkwise mLSTM: no library time
+        row.update(timings(torch, lambda: mk.mlstm(q, k, v, ig, fg), 20,
+                           lambda: ref.mlstm_chunked(q, k, v, ig, fg), 3))
     return row
 
 
@@ -390,10 +454,9 @@ def check_scan(torch, F, ss, ref, gen, case, timed: bool, exp_per_s: float):
         row["bound_bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         row["bound_exp_ms"] = exps / exp_per_s * 1e3
         row["bound_ms"], row["bound_by"] = bound(nbytes, exps, exp_per_s)
-        row["ms"] = time_ms(torch, lambda: ss.selective_scan(x, dt, a_log, b, c, d_skip), 50)
-        row["plain_ms"] = time_ms(torch, lambda: ref.selective_scan(x, dt, a_log, b, c, d_skip),
-                                  3)
-        row["library_ms"] = None     # no single PyTorch call computes the selective scan
+        # no single PyTorch call computes the selective scan: no library time
+        row.update(timings(torch, lambda: ss.selective_scan(x, dt, a_log, b, c, d_skip), 50,
+                           lambda: ref.selective_scan(x, dt, a_log, b, c, d_skip), 3))
     return row
 
 
@@ -793,6 +856,7 @@ def main() -> int:
     from repro_torch.kernels import mlstm as mk
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels.ref import DECODE_CHUNK as CHUNK
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -856,6 +920,18 @@ def main() -> int:
                     jamba_decode,
                     (4, 528, 64, 8, 128, [528, 513, 0, 520], "bfloat16"),
                     (2, 300, 64, 8, 128, [0, 299], "float32")]
+    # every group size of the registered configs (G = 5, 6, 7, 12 at D = 128:
+    # qwen2.5-32b, qwen2-vl-2b, arctic-480b, starcoder2-3b) at lengths 1, one
+    # split less one, one split, one split and one, and S; G = 17 (two row
+    # tiles of 16 heads) and whisper's G = 1 at D = 64
+    split_lengths = [1, CHUNK - 1, CHUNK, CHUNK + 1, 528]
+    decode_cases += [(5, 528, hq, hkv, 128, split_lengths, dtype)
+                     for dtype in ("bfloat16", "float32")
+                     for hq, hkv in ((40, 8), (12, 2), (56, 8), (24, 2))]
+    decode_cases += [(3, 200, 34, 2, 64, [200, 0, 77], "bfloat16"),
+                     (3, 200, 34, 2, 64, [200, 0, 77], "float32"),
+                     (3, 100, 16, 16, 64, [1, 64, 100], "bfloat16"),
+                     (2, 2100, 24, 8, 128, [2100, 1500], "bfloat16")]   # 33 splits
     # B, page_size, max_pages, Hq, Hkv, D, lengths, dtype; the first is the
     # decode tier's shape (8 slots, 33 pages of 16 = 528 positions)
     paged_cases = [(8, 16, 33, 24, 8, 128, [528] * 8, "bfloat16"),
@@ -864,6 +940,12 @@ def main() -> int:
                    (3, 8, 5, 8, 1, 64, [0, 40, 9], "bfloat16"),             # MQA, D=64
                    (4, 16, 6, 8, 2, 64, [96, 3, 0, 50], "float32"),         # GQA, D=64
                    (2, 4, 7, 4, 4, 32, [28, 13], "bfloat16")]
+    paged_cases += [(5, 16, 33, hq, hkv, 128, split_lengths, dtype)
+                    for dtype in ("bfloat16", "float32")
+                    for hq, hkv in ((40, 8), (12, 2), (56, 8), (24, 2))]
+    paged_cases += [(4, 32, 17, 24, 8, 128, [1, CHUNK - 1, CHUNK + 1, 544], "bfloat16"),
+                    (4, 8, 66, 24, 8, 128, [1, CHUNK, 100, 528], "bfloat16"),
+                    (3, 8, 25, 34, 2, 64, [200, 0, 77], "bfloat16")]
     # B, S, H, Dk, Dv, dtype, i_scale, split; the first is xlstm-1.3b's prefill
     mlstm_cases = [(4, 512, 4, 512, 1024, "bfloat16", 1.0, 0),
                    (2, 100, 4, 512, 1024, "bfloat16", 1.0, 0),       # padding
@@ -916,6 +998,8 @@ def main() -> int:
         for r in rows:
             extra = "".join(f" {k} {r[k]}" for k in ("layout_bitwise", "vs_contiguous_bitwise",
                                                      "vs_contiguous_max_abs_err",
+                                                     "vs_split_order_max_abs_err",
+                                                     "rerun_bitwise",
                                                      "max_abs_err_C_n_m", "scaled_err_h",
                                                      "scaled_err_C_n_m", "max_abs_err_h",
                                                      "scaled_err_y")
@@ -927,11 +1011,12 @@ def main() -> int:
             if "ms" not in r:
                 continue
             library = "none (no single PyTorch call)" if r["library_ms"] is None \
-                else f"{r['library_ms']:.4f}"
+                else f"{r['library_ms']:.4f} library_device_ms {r['library_device_ms']:.4f}"
             split = "".join(f" {k} {r[k]:.4f}" for k in ("bound_bytes_ms", "bound_exp_ms")
                             if k in r)
             where = "the path's shape" if r is main else f"{timed_extra[id(c)]} {r['case']}"
-            log(f"{name} at {where}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+            log(f"{name} at {where}: kernel_ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} "
+                f"host_us {r['host_us']:.1f} plain_ms {r['plain_ms']:.4f} "
                 f"library_ms {library} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}){split}")
         bad = [r["case"] for r in rows if not r["ok"]]
         if bad:
@@ -998,8 +1083,10 @@ def main() -> int:
                         "replaces": sources[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "device_ms": r["device_ms"], "host_us": r["host_us"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "library_device_ms": r["library_device_ms"]})
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,22 +3,25 @@
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py::_dec_kernel
 // (entry decode_attention, :35 and :82). It computes what that kernel
-// computes: the row length is clipped to S (:49), positions >= length are
-// dead, V is never read under the mask, so NaN written past length cannot
-// leak (:59), and a row with l = 0 (length 0) is exactly 0.
+// computes: an online softmax in f32 with scale 1/sqrt(D), the row length
+// clipped to S (:49), positions >= length dead and V never read under the
+// mask, so NaN written past length cannot leak (:59), P rounded to the
+// cache's dtype before P V (:70-72), and a row with l = 0 (length 0)
+// exactly 0. Any Hq % Hkv == 0, head dims 32, 64 and 128.
 //
 // What bounds it on the H100: bytes. At llama3.2-3b's decode shape (B=4,
-// S=528, Hkv=8, D=128, bf16) one layer call reads ~8.7 MB of K/V at full
-// length and does ~26 MFLOP, ~2.6 us at 3.35 TB/s. The design keeps every
-// K/V byte read exactly once with 16-byte loads and several loads in flight
-// per thread.
+// S=528, Hq=24, Hkv=8, D=128, bf16) one layer call reads 8.65 MB of K/V at
+// full length and does 26 MFLOP: 2.6 us at 3.35 TB/s, 0.03 us at the bf16
+// tensor-core peak.
 //
-// Design: the sweep of decode_sweep.cuh (one CTA of 8 warps per (kv head,
-// batch row), the group's query heads in registers, key groups of D/8 lanes
-// with 16-byte loads, shuffle and shared-memory merges), with key t of row b
-// at (b * S + t) * Hkv * D, up to min(length, S).
-// - Known gap: B * Hkv CTAs (32 at B=4, Hkv=8) on 132 SMs. Splitting S
-//   across CTAs with a second merge pass is the redesign's work.
+// Design: decode_sweep.cuh. The keys are split into chunks of 64 across CTAs
+// (9 x 8 x 4 = 288 CTAs at that shape, where one CTA per (row, kv head)
+// gave 32 on 132 SMs), so enough K/V bytes are in flight to near the byte
+// bound; each warp loads its 16 key rows by cp.async and runs both products
+// on the tensor cores with the group's query heads as the M rows, so the
+// per-key work is a few mma instructions instead of a shuffle-reduced dot
+// per (key, head); a second, small kernel merges the f32 partials in split
+// order. Key t of row b is at (b * S + t) * Hkv * D, up to min(length, S).
 #include "decode_sweep.cuh"
 
 namespace repro {
@@ -29,26 +32,31 @@ struct ContiguousKeys {
   __device__ __forceinline__ size_t operator()(int t) const { return t * row; }
 };
 
-template <typename T, int D, int G>
+template <typename T, int D>
 __global__ void __launch_bounds__(decode::THREADS)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-              const int* __restrict__ length, T* __restrict__ o, int S, int Hkv) {
-  const int hk = blockIdx.x, b = blockIdx.y;
-  int len = length[b];
-  len = len < 0 ? 0 : (len > S ? S : len);
-  const size_t base = (static_cast<size_t>(b) * S * Hkv + hk) * D;
-  decode::sweep<T, D, G>(q, kc + base, vc + base,
-                         ContiguousKeys{static_cast<size_t>(Hkv) * D}, len, o, b, hk, Hkv);
+decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                      const T* __restrict__ vc, const int* __restrict__ length,
+                      float* __restrict__ scratch, int B, int S, int Hkv, int G, int NS) {
+  pdl_launch_dependents();
+  decode::Split sp;
+  if (!decode::cta_split(length, S, B, Hkv, G, NS, D, scratch, sp)) return;
+  const size_t base = (static_cast<size_t>(sp.b) * S * Hkv + sp.hk) * D;
+  decode::partial<D>(q, kc + base, vc + base, ContiguousKeys{static_cast<size_t>(Hkv) * D},
+                     sp);
 }
 
-template <typename T, int D, int G>
+template <typename T, int D>
 struct Launch {
   static cudaError_t run(const void* q, const void* k, const void* v, const int* length,
-                         void* o, int B, int S, int Hkv, cudaStream_t stream) {
-    decode_kernel<T, D, G><<<dim3(Hkv, B), decode::THREADS, 0, stream>>>(
+                         void* o, float* scratch, int B, int S, int Hkv, int G, int NS,
+                         cudaStream_t stream) {
+    const dim3 grid(NS, Hkv * decode::row_tiles(G), B);
+    decode_partial_kernel<T, D><<<grid, decode::THREADS, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), length,
-        static_cast<T*>(o), S, Hkv);
-    return cudaGetLastError();
+        scratch, B, S, Hkv, G, NS);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return decode::launch_merge<T>(scratch, length, o, B, Hkv, G, D, NS, S, stream);
   }
 };
 
@@ -56,13 +64,18 @@ struct Launch {
 }  // namespace repro
 
 // q: [B,Hq,D]; k, v: [B,S,Hkv,D]; length: int32 [B] on the device; o: [B,Hq,D];
-// contiguous, one dtype (0 = f32, 1 = bf16), 16-byte aligned. Launches on
-// `stream`, does not synchronise, returns cudaGetLastError() of the launch.
+// contiguous, one dtype (0 = f32, 1 = bf16), 16-byte aligned. scratch: f32
+// [B * Hkv * n_splits * (Hq / Hkv) * (D + 2)], n_splits = max(1, ceil(S / 64)).
+// Launches the split kernel and the merge on `stream`, does not synchronise,
+// returns the first CUDA error of the two launches.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
-                                      const void* length, void* o, int dtype, int B, int S,
-                                      int Hq, int Hkv, int D, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+                                      const void* length, void* o, void* scratch, int dtype,
+                                      int B, int S, int Hq, int Hkv, int D, int n_splits,
+                                      void* stream) {
+  if (B <= 0 || S < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      n_splits != repro::decode::n_splits(S))
+    return cudaErrorInvalidValue;
   return repro::decode::dispatch<repro::Launch>(
-      dtype, D, Hq / Hkv, q, k, v, static_cast<const int*>(length), o, B, S, Hkv,
-      static_cast<cudaStream_t>(stream));
+      dtype, D, q, k, v, static_cast<const int*>(length), o, static_cast<float*>(scratch), B,
+      S, Hkv, Hq / Hkv, n_splits, static_cast<cudaStream_t>(stream));
 }

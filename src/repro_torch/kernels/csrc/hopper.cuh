@@ -75,6 +75,26 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// wait until at most N committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ------------------------------------------------------------ programmatic dependent launch
+
+// Let the grid launched next on the stream with programmatic stream
+// serialisation start its blocks now (they wait in pdl_wait).
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Wait until the grids this one depends on have completed and their memory
+// is visible (returns at once when launched without the attribute).
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------ mbarrier
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+# logical keys per split of the decode kernels (CHUNK in csrc/decode_sweep.cuh)
+DECODE_CHUNK = 64
 
 
 def _scale(d: int) -> float:
@@ -143,6 +145,48 @@ def decode_attention(q, k_cache, v_cache, length, *, block_kv: int = 1024,
     return (acc / l_safe[..., None]).reshape(B, Hq, D).to(q.dtype)
 
 
+def decode_attention_splits(q, k_cache, v_cache, length, *, chunk: int = DECODE_CHUNK):
+    """:func:`decode_attention` in the order of the decode kernels: the f32
+    partials (m, l, acc) of each chunk of ``chunk`` logical keys, then their
+    log-sum-exp merge in chunk order,
+    ``M = max m_s; L = sum l_s e^(m_s - M); A = sum acc_s e^(m_s - M)``,
+    ``out = A / (L == 0 ? 1 : L)``. A chunk at or past a row's length adds
+    exactly nothing. Used by the tests and ``chip_smoke.py``."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    lengths = torch.as_tensor(length, dtype=torch.int32, device=q.device).expand(B)
+    live = torch.clamp(lengths, min=0, max=S)
+    parts = [decode_attention(q, k_cache[:, s0:s0 + chunk], v_cache[:, s0:s0 + chunk],
+                              torch.clamp(live - s0, min=0), return_stats=True)
+             for s0 in range(0, max(S, 1), chunk)]
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        e = torch.exp(m - M)
+        L = L + l * e
+        A = A + acc * e[..., None]
+    L = torch.where(L == 0, 1.0, L)
+    return (A / L[..., None]).reshape(B, Hq, D).to(q.dtype)
+
+
+def _gather_pages(k_pages, v_pages, page_table):
+    """The logical caches [B, max_pages * page_size, Hkv, D] a page table maps."""
+    B, max_pages = page_table.shape
+    _, page_size, Hkv, D = k_pages.shape
+    table = page_table.long()
+    return (k_pages[table].reshape(B, max_pages * page_size, Hkv, D),
+            v_pages[table].reshape(B, max_pages * page_size, Hkv, D))
+
+
+def paged_decode_attention_splits(q, k_pages, v_pages, page_table, lengths, *,
+                                  chunk: int = DECODE_CHUNK):
+    """:func:`paged_decode_attention` in the decode kernels' order: the pages
+    gathered, then :func:`decode_attention_splits`."""
+    k, v = _gather_pages(k_pages, v_pages, page_table)
+    return decode_attention_splits(q, k, v, lengths, chunk=chunk)
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            block_kv: int = 1024):
     """Single-token attention against a paged KV cache (gather, then the
@@ -154,12 +198,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     including all a null-page entry contributes, are masked, and V is zeroed
     under the mask, so NaN in the null page or in unmapped pages never leaks.
     """
-    B = q.shape[0]
-    _, page_size, Hkv, D = k_pages.shape
-    max_pages = page_table.shape[1]
-    table = page_table.long()
-    k = k_pages[table].reshape(B, max_pages * page_size, Hkv, D)
-    v = v_pages[table].reshape(B, max_pages * page_size, Hkv, D)
+    k, v = _gather_pages(k_pages, v_pages, page_table)
     return decode_attention(q, k, v, lengths, block_kv=block_kv)
 
 

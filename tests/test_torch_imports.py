@@ -141,7 +141,8 @@ def test_source_hash_covers_every_kernel_source():
 
 def test_chip_smoke_logs_the_ptxas_lines_of_the_redesigned_kernels(tmp_path):
     """chip_smoke.py prints the registers, shared memory and spills that
-    ptxas reports for flash_attention.cu and mlstm.cu, and only for them."""
+    ptxas reports for the redesigned kernels (flash_attention.cu, mlstm.cu,
+    decode_attention.cu, paged_decode_attention.cu), and only for them."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
@@ -156,13 +157,22 @@ def test_chip_smoke_logs_the_ptxas_lines_of_the_redesigned_kernels(tmp_path):
         "ptxas info    : Used 167 registers, used 1 barriers\n"
         "ptxas info    : Compile time = 76.058 ms\n"
         "== mlstm.cu (rc 0)\n"
-        "ptxas info    : Used 231 registers, used 1 barriers\n")
+        "ptxas info    : Used 231 registers, used 1 barriers\n"
+        "== selective_scan.cu (rc 0)\n"
+        "ptxas info    : Used 64 registers\n"
+        "== paged_decode_attention.cu (rc 0)\n"
+        "ptxas info    : Used 80 registers, used 1 barriers, 34816 bytes smem\n")
     lines = chip_smoke.ptxas_lines(tmp_path / "librepro_kernels.so")
-    assert lines == ["== flash_attention.cu (rc 0)",
+    assert lines == ["== decode_attention.cu (rc 0)",
+                     "ptxas info    : Compiling entry function 'dec' for 'sm_90a'",
+                     "ptxas info    : Used 40 registers",
+                     "== flash_attention.cu (rc 0)",
                      "ptxas info    : Compiling entry function 'fa' for 'sm_90a'",
                      "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
                      "ptxas info    : Used 167 registers, used 1 barriers",
                      "== mlstm.cu (rc 0)",
-                     "ptxas info    : Used 231 registers, used 1 barriers"]
+                     "ptxas info    : Used 231 registers, used 1 barriers",
+                     "== paged_decode_attention.cu (rc 0)",
+                     "ptxas info    : Used 80 registers, used 1 barriers, 34816 bytes smem"]
     assert chip_smoke.ptxas_lines(tmp_path / "missing" / "lib.so") == [
         "no build.log beside the library"]

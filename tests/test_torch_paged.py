@@ -157,6 +157,36 @@ def test_scalar_length_broadcasts():
                        _plain(q, kp, vp, table, torch.tensor([7, 7], dtype=torch.int32)))
 
 
+# the CUDA kernels' split order (ref.*_splits): chunks of ref.DECODE_CHUNK
+# logical keys, so a cache of 9 pages of 16 spans three splits
+SPLIT_LENGTHS = [0, 1, tref.DECODE_CHUNK - 1, tref.DECODE_CHUNK, tref.DECODE_CHUNK + 1, 144]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (10, 2), (12, 2), (7, 1)],
+                         ids=["mha", "g5", "g6", "mqa7"])
+def test_split_order_through_shuffled_tables_equals_contiguous_exactly(Hq, Hkv, dtype):
+    """The plain version in the kernels' split order gives the same bits
+    through a shuffled page table (NaN in the null page behind every unmapped
+    entry) as on the contiguous cache the pages came from, and the Pallas
+    paged kernel's values within its tolerance."""
+    build = lambda **kw: _build_paged(9, len(SPLIT_LENGTHS), 9, 16, Hq, Hkv, 16, dtype,
+                                      lengths=SPLIT_LENGTHS, **kw)
+    arrs = build(null_fill=np.nan, shuffle_seed=3, map_dead=False)
+    tq, tkc, tvc, tkp, tvp, ttable, tln = _to_torch(arrs, dtype)
+    got = tref.paged_decode_attention_splits(tq, tkp, tvp, ttable, tln)
+    assert torch.equal(got, tref.decode_attention_splits(tq, tkc, tvc, tln))
+    _, _, _, kp2, vp2, table2, _ = _to_torch(build(shuffle_seed=11), dtype)
+    assert torch.equal(got, tref.paged_decode_attention_splits(tq, kp2, vp2, table2, tln))
+    assert bool(torch.isfinite(got).all()) and bool((got[0] == 0).all())
+    zero = build(null_fill=0.0, shuffle_seed=3, map_dead=False)
+    jq, jkp, jvp, jtable, jln = _to_jax([zero[i] for i in (0, 3, 4, 5, 6)], dtype)
+    want = jpda.paged_decode_attention(jq, jkp, jvp, jtable, jln, interpret=True)
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
     q, _, _, kp, vp, table, ln = _to_torch(
         _build_paged(6, 2, 2, 4, 4, 2, 32, "bfloat16", lengths=[3, 8]), "bfloat16")
