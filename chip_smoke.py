@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's cold-start serve path (llama3.2-3b, xlstm-1.3b and
-jamba-1.5-large) and its continuous-batching decode tier on one NVIDIA GPU
-and check them.
+"""Run the PyTorch port's cold-start serve path (llama3.2-3b through the
+Gateway, xlstm-1.3b and jamba-1.5-large) and its continuous-batching decode
+tier on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -38,34 +38,47 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``host_us``), and the least time the card could take (``bound_ms``;
    for the scan the larger of its bytes and its exponentials at the SM
    clock).
-3. Path: ``deploy`` full-width llama3.2-3b (bf16, its depth cut to 8 of
-   28 layers for the time limit, random weights from the spec's seed) on the
-   GPU, then serve 2 cold requests through the ``unikernel`` driver (boot ->
-   run -> exit), counting kernel launches; time each boot track alone; then
-   hold every kernel call of a kernel-path prefill against its plain version
-   on the same inputs, and the kernel path's prefill logits and the plain
-   path's, on the same weights, against the plain path in float32 (its
-   weights read from the snapshot once the executor has exited).
-3b. Decode tier, on phase 3's deployment: ``ensure_decode(slots=8,
-   page_size=16)`` (export, save, load, verify the admit and step
-   programs), then a ``DecodeScheduler`` on a one-host ``Cluster`` serves 12
-   requests of 512 prompt tokens submitted in one burst, budgets cycling
-   through 16, 3, 7, 16, 1, 5; checks every budget, one boot and one
-   cool-down, and launches (flash = L x admits, paged = L x steps, no
-   contiguous decode); then holds one admit call (its logits and the K/V it
-   wrote) and one step call, each replayed on clones of the pool it saw
-   mid-run, kernel route and plain route, against the plain route in float32.
-3c. The xlstm serve path, after llama's deployment is freed: ``deploy``
-   full-width xlstm-1.3b (bf16, its depth cut to 2 of 6 periods of 7 mLSTM
-   + 1 sLSTM for the time limit, random weights from the spec's seed), then
-   phase 3's checks: 3 cold requests (14 mLSTM launches each, no
-   attention), each boot track alone,
-   every mLSTM call of a kernel-path prefill against its plain version, and
-   the prefill-logit gate against the plain path in float32.
+3. Path, through the port's control plane: ``Gateway(n_hosts=2,
+   slots_per_host=2, mode="cold", hedging=False, scheduler=
+   SchedulerConfig(snapshot_tier_bytes=4 << 30), decode=DecodeConfig(slots=8,
+   page_size=16))`` on the GPU; ``gw.deploy`` full-width llama3.2-3b (bf16,
+   its depth cut to 8 of 28 layers for the time limit, random weights from
+   the spec's seed: program, v2 chunked snapshot, decode bundle); then
+   request 1 (the store path), request 2 (the same host: program and tree
+   memos, no deserialize), a burst of 4 through ``gw.invoke_many``
+   (concurrent boots on one card, over both hosts), request 1's host killed
+   and request 7 served on the survivor, and ``gw.noop()``. Each request
+   logs its host, boot stages, ``t_boot_wall`` and execution; every
+   request's tokens equal request 1's, and each makes L flash and L x K
+   decode launches. Then the tier counters (``placement_summary``,
+   ``resilience_summary``), each boot track alone (weights from the chunk
+   store, device copy, program), every kernel call of a kernel-path
+   prefill against its plain version, and the kernel path's prefill logits
+   and the plain path's, on the snapshot's weights, against the plain path
+   in float32.
+3b. Decode tier, on phase 3's gateway: the decode scheduler ``gw.deploy``
+   built (``ensure_decode(slots=8, page_size=16)``: export, save, load,
+   verify the admit and step programs) serves 12 requests of 512 prompt
+   tokens submitted in one burst through ``gw.invoke_decode_async``,
+   budgets cycling through 16, 3, 7, 16, 1, 5; then ``gw.shutdown()``,
+   which must leave no non-daemon thread; checks every budget and
+   ``gw.decode_summary``, one boot and one cool-down, and launches (flash =
+   L x admits, paged = L x steps, no contiguous decode); then holds one
+   admit call (its logits and the K/V it wrote) and one step call, each
+   replayed on clones of the pool it saw mid-run, kernel route and plain
+   route, against the plain route in float32.
+3c. The xlstm serve path, after llama's gateway is shut down: ``deploy``
+   (v1 snapshot; the ``unikernel`` driver called directly) full-width
+   xlstm-1.3b (bf16, its depth cut to 2 of 6 periods of 7 mLSTM + 1 sLSTM
+   for the time limit, random weights from the spec's seed), then the
+   serve-path checks: 3 cold requests (14 mLSTM launches each, no
+   attention), each boot track alone, every mLSTM call of a kernel-path
+   prefill against its plain version, and the prefill-logit gate against
+   the plain path in float32.
 3d. The jamba serve path, after xlstm's deployment is freed: ``deploy``
    full-width jamba-1.5-large cut to one period of 8 layers (7 Mamba + 1
    attention, MoE on every other layer) and 4 of its 16 experts (top-2),
-   16.2 B parameters, 32.5 GB in bf16; then phase 3's checks: 2 cold requests
+   16.2 B parameters, 32.5 GB in bf16; then the same checks: 2 cold requests
    (7 selective-scan, 1 flash and 16 decode launches each), each boot track
    alone, every scan and flash call of a kernel-path prefill against its
    plain version, and the prefill-logit gate. Each path logs its peak device
@@ -103,7 +116,6 @@ SPEC = dict(arch=LLAMA_ARCH, reduced=False, batch_size=4, prompt_len=512, decode
 XLSTM_PERIODS = 2                   # of 6: the xlstm path's depth, cut for the time limit
 XLSTM_ARCH = f"xlstm-1.3b:{XLSTM_PERIODS}P"
 XLSTM_SPEC = dict(SPEC, arch=XLSTM_ARCH)
-LLAMA_REQUESTS = 2                  # 3 before the xlstm phase; cut for the time limit
 XLSTM_REQUESTS = 3
 # jamba-1.5-large at full width, cut to one period of 8 layers (7 Mamba + 1
 # attention) and 4 of its 16 experts (top-2 kept) to fit one card twice over
@@ -466,25 +478,27 @@ CAPTURE_STEP = 4                    # the step whose inputs the numeric gate rep
 CAPTURE_ADMIT = 8                   # the admit it replays: a backfill beside live rows
 
 
-def decode_tier(torch, dep) -> dict:
-    """Phase 3b: the continuous-batching decode tier at full width on ``dep``.
-    Returns the kernel launches of the burst."""
+def decode_tier(torch, gw, dep) -> dict:
+    """Phase 3b: the continuous-batching decode tier at full width, the
+    decode scheduler that ``gw.deploy`` built for ``dep``, fed through
+    ``gw.invoke_decode_async``; ends with ``gw.shutdown()``. Returns the
+    kernel launches of the burst."""
+    import threading
+
     import numpy as np
     from repro_torch import pytree
-    from repro_torch.core.cluster import Cluster
-    from repro_torch.core.decode import DecodeConfig, DecodeScheduler
     from repro_torch.core.deploy import make_admit_fn, make_step_fn
-    from repro_torch.core.metrics import Recorder, now
+    from repro_torch.core.metrics import now
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
     cfg, spec = dep.model.cfg, dep.spec
     L = cfg.n_layers
-    t0 = now()
-    bundle = dep.ensure_decode(DECODE_SLOTS, PAGE_SIZE)
+    sched = gw.decoders[dep.name]
+    bundle = sched.bundle
     pool_gb = 2 * L * bundle.n_pages * bundle.page_size * cfg.n_kv_heads * \
         cfg.resolved_head_dim * 2 / 1e9
-    log(f"ensure_decode: {now() - t0:.1f} s [" +
+    log(f"ensure_decode (in gw.deploy): {sum(bundle.build_s.values()):.1f} s [" +
         " ".join(f"{k} {v:.2f}" for k, v in bundle.build_s.items()) +
         f"] | slots {bundle.slots} page_size {bundle.page_size} max_pages "
         f"{bundle.max_pages} n_pages {bundle.n_pages} | pools {pool_gb:.3f} GB")
@@ -513,8 +527,6 @@ def decode_tier(torch, dep) -> dict:
             return out
         return run
 
-    sched = DecodeScheduler(dep, Cluster(n_hosts=1), Recorder(),
-                            DecodeConfig(slots=DECODE_SLOTS, page_size=PAGE_SIZE))
     sched.bundle = dataclasses.replace(bundle, admit=observed("admit", bundle.admit),
                                        step=observed("step", bundle.step))
     prompts = np.random.default_rng(2).integers(
@@ -522,15 +534,28 @@ def decode_tier(torch, dep) -> dict:
     budgets = [DECODE_BUDGETS[i % len(DECODE_BUDGETS)] for i in range(N_DECODE_REQUESTS)]
     ops.reset_launch_counts()
     t0 = now()
-    futs = [sched.submit(p, max_new=b, label=f"decode{i}")
+    futs = [gw.invoke_decode_async(dep.name, p, max_new=b, label=f"decode{i}")
             for i, (p, b) in enumerate(zip(prompts, budgets))]
     outs = [f.result(900) for f in futs]
     t_served = now()
-    sched.close()
+    threads = set(threading.enumerate())
+    gw.shutdown()                           # closes the decode loop: drain, cool
     launches = ops.launch_counts()
+    t_join = time.perf_counter()
+    while time.perf_counter() - t_join < 30:
+        alive = [t.name for t in threading.enumerate() if not t.daemon
+                 and t is not threading.main_thread()]
+        if not alive:
+            break
+        time.sleep(0.05)
+    log(f"gw.shutdown(): threads before {len(threads)}, non-daemon threads left {alive}")
+    if alive:
+        raise AssertionError(f"gw.shutdown() left non-daemon threads alive: {alive}")
 
-    s = sched.summary()
-    tl = sched.recorder.timelines("decode0")[0]
+    s = gw.decode_summary(dep.name)
+    if s["requests"] != N_DECODE_REQUESTS or s["tokens_generated"] != sum(budgets):
+        raise AssertionError(f"gw.decode_summary: {s}")
+    tl = gw.recorder.timelines("decode0")[0]
     stages = " ".join(f"{k} {v:.3f}" for k, v in tl.stage_s.items())
     admit_s, step_s = sum(calls["admit"]), sum(calls["step"])
     loop_s = t_served - t0 - tl.t_boot_wall
@@ -703,7 +728,6 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
     weights are read from the snapshot after the executor has exited, so the
     card never holds both copies. Returns (deployment, launches of the
     requests)."""
-    from repro_torch import pytree
     from repro_torch.core.boot import streamed_device_put
     from repro_torch.core.compile_cache import CompileCache
     from repro_torch.core.deploy import deploy
@@ -711,7 +735,6 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
     from repro_torch.core.metrics import Timeline, now
     from repro_torch.core.snapshot import SnapshotStore
     from repro_torch.kernels import ops
-    from repro_torch.models import build_model
 
     work.mkdir(parents=True, exist_ok=True)
     torch.cuda.reset_peak_memory_stats()
@@ -775,16 +798,30 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
         f"{memory_line(torch, work)}")
     torch.cuda.reset_peak_memory_stats()
 
-    # Same weights (the last executor's, and the snapshot they came from):
-    # the kernel path, the plain path, and the plain path in float32 as the
-    # reference. Two bf16 paths drift apart over the layers by bf16 rounding
-    # alone, so the gate is that the kernel path is no less accurate than the
-    # plain bf16 path: its relative L2 error against the f32 logits is at
-    # most twice the plain path's. A wrong kernel would be off by orders of
-    # magnitude, except where the stack loses the f32 logits in bf16 by
-    # itself (xlstm's random-weight blocks, all 48 of them): there the
-    # per-call check carries the kernels' correctness.
-    params = ex.params
+    prefill_gates(torch, dep, [ex.params], tokens, out, work,
+                  release=lambda: driver.finish(dep, ex))
+    return dep, launches
+
+
+def prefill_gates(torch, dep, held, tokens, out, work, release) -> None:
+    """Same weights (``held``, a one-item list the gates take the weights
+    out of, and the snapshot they came from): the kernel
+    path, the plain path, and the plain path in float32 as the reference.
+    Two bf16 paths drift apart over the layers by bf16 rounding alone, so the
+    gate is that the kernel path is no less accurate than the plain bf16
+    path: its relative L2 error against the f32 logits is at most twice the
+    plain path's. A wrong kernel would be off by orders of magnitude, except
+    where the stack loses the f32 logits in bf16 by itself (xlstm's
+    random-weight blocks, all 48 of them): there the per-call check carries
+    the kernels' correctness. ``release()`` drops the caller's hold on the
+    bf16 weights before the f32 ones are read from the snapshot, so the card
+    never holds both; ``out`` are the tokens the path served."""
+    from repro_torch import pytree
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    spec, cfg, key = dep.spec, dep.model.cfg, dep.image.key
+    params = held.pop()
     batch = {"tokens": tokens}
     with torch.inference_mode(), recorded_kernel_calls(ops) as calls:
         lk, _ = dep.model.prefill(params, batch, capacity=spec.prompt_len)
@@ -794,7 +831,7 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
         lp, _ = dep.model.prefill(params, batch, capacity=spec.prompt_len)
         out_plain = dep.serve_fn(params, tokens)
     del params
-    driver.finish(dep, ex)
+    release()
     gc.collect()
     torch.cuda.empty_cache()
     model32 = build_model(dataclasses.replace(cfg, dtype="float32"), dep.model.max_seq)
@@ -820,7 +857,168 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
     if not (bool(torch.isfinite(lk).all()) and err_k <= 2.0 * err_p):
         raise AssertionError("kernel path's prefill logits are less accurate than the plain "
                              "path's")
-    return dep, launches
+
+
+# ---------------------------------------------------------------- phase 3
+
+GATEWAY_BURST = 4                   # requests of phase 3's concurrent burst
+GATEWAY_REQUESTS = 3 + GATEWAY_BURST  # request 1, request 2, the burst, request 7
+
+
+def gateway_path(torch, spec, work):
+    """Phase 3: llama's serve path through the port's Gateway on two hosts.
+
+    Deploy (program + v2 chunked snapshot + the decode bundle), then request 1
+    (the store path), request 2 (the same host: program and tree memos), a
+    burst of ``GATEWAY_BURST`` over both hosts (concurrent boots on one
+    card), request 1's host killed and request 7 served on the survivor, and
+    a noop. Every request's tokens equal request 1's, and each request makes
+    L flash and L x K decode launches. Then each boot track alone and the
+    prefill gates on the snapshot's weights. Returns (gateway, deployment,
+    launches of the requests); the gateway stays up for phase 3b."""
+    import numpy as np
+    from repro_torch.core import FunctionSpec, Gateway
+    from repro_torch.core.blobstore import delta_restore
+    from repro_torch.core.boot import streamed_device_put
+    from repro_torch.core.decode import DecodeConfig
+    from repro_torch.core.metrics import now
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.kernels import ops
+
+    spec = FunctionSpec(**spec)
+    work.mkdir(parents=True, exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    log(f"before deploy {spec.name}: {memory_line(torch, work)}")
+    # The 8-layer snapshot (2.40 GB) is larger than the default chunk tier
+    # (SchedulerConfig.snapshot_tier_bytes = 2 << 30), which refuses a
+    # snapshot larger than itself: with the default every boot would pay the
+    # store path and the tree memo would never hit. 4 GiB holds it.
+    gw = Gateway(n_hosts=2, slots_per_host=2, mode="cold", hedging=False,
+                 scheduler=SchedulerConfig(snapshot_tier_bytes=4 << 30),
+                 decode=DecodeConfig(slots=DECODE_SLOTS, page_size=PAGE_SIZE),
+                 work_dir=str(work))
+    t0 = time.perf_counter()
+    dep = gw.deploy(spec)
+    m, cfg, name, key = dep.image.manifest, dep.model.cfg, dep.name, dep.image.key
+    blobs = gw.blobs.stats()
+    log(f"deploy {name} through the Gateway: {time.perf_counter() - t0:.1f} s (decode bundle "
+        f"included) [" + " ".join(f"{k} {v:.2f}" for k, v in dep.build_s.items()) +
+        f"] | {m.param_count} params | program {m.program_bytes} B | v2 snapshot "
+        f"{m.snapshot_bytes} B in {m.extra['snapshot_chunks']} chunks of "
+        f"{m.extra['chunk_bytes']} B (store: {int(blobs['chunks'])} chunks, "
+        f"{int(blobs['bytes'])} B, {int(blobs['dedup_hits'])} dedup hits) | {cfg.n_layers} "
+        f"layers d_model "
+        f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} {cfg.dtype} | "
+        f"{memory_line(torch, work)}")
+
+    # observe, without changing them, which host served each request and how
+    # many program deserializes each step paid
+    hosts, deserialized = {}, [0]
+    handle, deserialize = gw.agent.handle, gw.cache.deserialize_program
+
+    def observed_handle(host, dep_, tokens_, driver_name, tl, *args, **kwargs):
+        hosts[id(tl)] = host.host_id
+        return handle(host, dep_, tokens_, driver_name, tl, *args, **kwargs)
+
+    def counted_deserialize(payload):
+        deserialized[0] += 1
+        return deserialize(payload)
+
+    gw.agent.handle = observed_handle
+    gw.cache.deserialize_program = counted_deserialize
+
+    tokens = dep.example_tokens(seed=1)
+    want = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * spec.decode_steps,
+            "paged_decode_attention": 0, "mlstm": 0, "selective_scan": 0}
+    first = {}
+
+    def served(label, outs, launched, n_deser):
+        """Log and check every request of one step of the phase."""
+        tls = gw.recorder.timelines(label)
+        if len(tls) != len(outs):
+            raise AssertionError(f"{label}: {len(tls)} timelines for {len(outs)} requests")
+        for i, (tl, out) in enumerate(zip(tls, outs)):
+            stages = " ".join(f"{k} {v:.3f}" for k, v in tl.stage_s.items())
+            log(f"{label}{f'[{i}]' if len(tls) > 1 else ''}: host {hosts[id(tl)]} | boot "
+                f"[{stages}] t_boot_wall {tl.t_boot_wall:.3f} s | execution "
+                f"{tl.execution:.3f} s | e2e {tl.e2e:.3f} s | bytes fetched "
+                f"{int(tl.bytes_fetched)} deduped {int(tl.bytes_deduped)} | tokens "
+                f"{out.tolist() if not first else 'as request 1'}")
+            if out.shape != (spec.batch_size, spec.decode_steps) or out.dtype != np.int32 \
+                    or not ((out >= 0) & (out < cfg.vocab_size)).all():
+                raise AssertionError(f"{label}: bad output {out.shape} {out.dtype}")
+            first.setdefault("tokens", out)
+            if not np.array_equal(out, first["tokens"]):
+                raise AssertionError(f"{label}: tokens differ from request 1's")
+        grew = {k: launched[k] for k in want}
+        if grew != {k: v * len(outs) for k, v in want.items()}:
+            raise AssertionError(f"{label}: launches {grew}, expected {want} x {len(outs)}")
+        log(f"{label}: launches {grew} | program deserializes {n_deser}")
+        return tls
+
+    def step(label, run):
+        before, n0 = ops.launch_counts(), deserialized[0]
+        outs = run()
+        after = ops.launch_counts()
+        return served(label, outs, {k: after[k] - before[k] for k in after},
+                      deserialized[0] - n0)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (tl1,) = step("request 1", lambda: [gw.invoke(name, tokens, label="request 1", timeout=900)])
+    (tl2,) = step("request 2", lambda: [gw.invoke(name, tokens, label="request 2", timeout=900)])
+    if hosts[id(tl2)] != hosts[id(tl1)] or {"fetch_program_cached", "restore_weights_cached"} \
+            - set(tl2.stage_s) or deserialized[0] != 1:
+        raise AssertionError(f"request 2 missed the host's memos: host {hosts[id(tl2)]} "
+                             f"stages {list(tl2.stage_s)}, {deserialized[0]} deserializes")
+    step("burst", lambda: gw.invoke_many(name, [tokens] * GATEWAY_BURST, label="burst",
+                                          timeout=900))
+    killed = hosts[id(tl1)]
+    gw.cluster.kill_host(killed)
+    (tl7,) = step("request 7", lambda: [gw.invoke(name, tokens, label="request 7", timeout=900)])
+    if hosts[id(tl7)] == killed:
+        raise AssertionError(f"request 7 landed on the killed host {killed}")
+    log(f"host {killed} killed -> next request still served on host {hosts[id(tl7)]}")
+    t = now()
+    gw.noop()
+    log(f"noop: {1e3 * (now() - t):.3f} ms")
+    launches = ops.launch_counts()
+    gw.agent.handle = handle
+    gw.cache.deserialize_program = deserialize
+
+    placement = gw.placement_summary()
+    for hid, h in placement["hosts"].items():
+        log(f"placement host {hid} (alive {h['alive']}): program tier hits "
+            f"{int(h['program']['hits'])} misses {int(h['program']['misses'])} bytes "
+            f"{int(h['program']['bytes'])} | chunk tier snapshots {int(h['snapshot']['items'])} "
+            f"chunks {int(h['snapshot']['chunks'])} bytes {int(h['snapshot']['bytes'])} tree hits "
+            f"{int(h['snapshot']['hits'])} misses {int(h['snapshot']['misses'])} | peer fetches "
+            f"{h['peer_fetches']} ({h['bytes_from_peer']} B) store fetches {h['store_fetches']} "
+            f"({h['bytes_from_store']} B) peer serves {h['peer_serves']}")
+    res = gw.resilience_summary()
+    log("resilience: " + json.dumps({k: res[k] for k in ("submitted", "attempts", "retries",
+                                                         "retries_denied", "breakers")}))
+    log(f"gateway phase: residency {gw.residency_summary()} | {memory_line(torch, work)}")
+
+    # each boot track alone: the weights from the global chunk store (no
+    # host tier), their device copy, and the program's fetch + deserialize
+    torch.cuda.reset_peak_memory_stats()
+    t0 = now()
+    tree, stats = delta_restore(dep.snapshots, key)
+    t1 = now()
+    dev = streamed_device_put(tree, "cuda")
+    t2 = now()
+    del tree
+    dep.load_program()
+    t3 = now()
+    log(f"tracks alone: weights from the chunk store {t1 - t0:.3f} s ({stats.t_store_s:.3f} s "
+        f"reading and checking {m.extra['snapshot_chunks']} chunks) + device_put "
+        f"{t2 - t1:.3f} s ({m.snapshot_bytes / (t2 - t1) / 1e9:.2f} GB/s, pageable) | program "
+        f"fetch+deserialize {t3 - t2:.3f} s | {memory_line(torch, work)}")
+    prefill_gates(torch, dep, [dev], torch.from_numpy(tokens).cuda(),
+                  torch.from_numpy(first["tokens"]).cuda(), work, release=lambda: None)
+    del dev
+    return gw, dep, launches
 
 
 def register_jamba() -> None:
@@ -1031,15 +1229,11 @@ def main() -> int:
     register_jamba()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        # ---- phase 3: the llama serve path, full width
-        dep, launches = serve_path(
-            torch, FunctionSpec(**SPEC), work / "llama", LLAMA_REQUESTS,
-            lambda cfg, spec: {"flash_attention": cfg.n_layers,
-                               "decode_attention": cfg.n_layers * spec.decode_steps,
-                               "paged_decode_attention": 0, "mlstm": 0, "selective_scan": 0})
-        # ---- phase 3b: the decode tier on the same deployment
-        launches_3b = decode_tier(torch, dep)
-        del dep
+        # ---- phase 3: the llama serve path, full width, through the Gateway
+        gw, dep, launches = gateway_path(torch, SPEC, work / "llama")
+        # ---- phase 3b: the decode tier on the same deployment, same Gateway
+        launches_3b = decode_tier(torch, gw, dep)
+        del gw, dep
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(work / "llama", ignore_errors=True)

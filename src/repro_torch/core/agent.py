@@ -1,0 +1,134 @@
+"""Agent: per-host executor lifecycle management (port of ``repro.core.agent``).
+
+One request = select driver -> start executor -> run -> finish (exit), with
+Timeline stamps at each boundary and exact residency accounting on exit.
+With cold drivers "the lifecycle management functionality of the agent
+becomes unnecessary" (paper Sec IV-A) — visible here as the trivial finish
+path.
+
+The agent is also the claim point for *speculative pre-boots*: the
+dispatcher may have launched the executor boot (via ``preboot``) while the
+request was still queued; ``handle`` then claims the finished boot instead of
+starting a fresh one, and the boot's per-stage timings land in the request's
+Timeline.
+
+The port's requests carry numpy token arrays, as the JAX package's do: the
+agent moves them to the deployment's device and brings the generated tokens
+back as a numpy array. ``handle_batch`` comes with the coalescer's bucket
+programs.
+
+Invariants: a crashed executor never returns to a pool (it exits, so retries
+always get a FRESH one); every exited executor's residency is accounted
+exactly once.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.boot import BootCancelled, BootHandle
+from repro_torch.core.cluster import Host
+from repro_torch.core.deploy import Deployment
+from repro_torch.core.executor import Executor
+from repro_torch.core.metrics import Recorder, ResidencyTracker, Timeline
+from repro_torch.core.metrics import now as _default_now
+
+
+class Agent:
+    def __init__(self, recorder: Recorder, residency: ResidencyTracker,
+                 clock=None, claim_timeout_s: float = 600.0) -> None:
+        self.recorder = recorder
+        self.residency = residency
+        # how long a request will wait for a speculative pre-boot it claimed
+        # before giving up (the boot handle's timeout error names the boot's
+        # last completed stage)
+        self.claim_timeout_s = float(claim_timeout_s)
+        self._now = clock.now if clock is not None else _default_now
+        # executor acquisitions (boots and claimed pre-boots)
+        self.boots = 0
+        self._lock = threading.Lock()
+
+    def preboot(self, host: Host, dep: Deployment,
+                driver_name: str) -> Optional[BootHandle]:
+        """Kick off a speculative boot on ``host`` for a queued request.
+
+        Returns None for drivers whose starts are impure or trivially cheap —
+        speculation only pays where a real boot pipeline runs.
+        """
+        driver = host.drivers.get(driver_name)
+        if driver is None or not driver.supports_preboot:
+            return None
+        return driver.engine.launch(driver.plan(dep), dep, driver_name=driver.name,
+                                    host=host)
+
+    def _claim_or_start(self, driver, dep: Deployment, tl: Timeline,
+                        preboot: Optional[BootHandle]) -> Executor:
+        with self._lock:
+            self.boots += 1
+        if preboot is not None:
+            try:
+                result = preboot.claim(self.claim_timeout_s)
+            except BootCancelled:
+                pass                          # lost a race — boot fresh below
+            else:
+                tl.record_boot(result.stage_s, result.wall_s,
+                               bytes_fetched=result.bytes_fetched,
+                               bytes_deduped=result.bytes_deduped,
+                               t_first_ready=result.t_first_ready,
+                               chunks_rehashed=result.chunks_rehashed,
+                               chunks_refetched=result.chunks_refetched)
+                tl.preboot = True
+                return result.executor
+        return driver.start(dep, tl)
+
+    def _exit(self, ex: Executor) -> None:
+        ex.exit()
+        self.residency.add_residency(ex.nbytes, ex.resident_seconds, ex.busy_seconds)
+
+    def handle(self, host: Host, dep: Deployment, tokens: Optional[np.ndarray],
+               driver_name: str, tl: Timeline, label: Optional[str] = None,
+               preboot: Optional[BootHandle] = None) -> Any:
+        tl.t_dispatch = self._now()
+        host.check_alive()
+        deadline = getattr(tl, "deadline", None)
+        if deadline is not None:
+            # the slot-queue wait may already have eaten the budget: abort
+            # BEFORE starting a boot that cannot possibly serve in time
+            deadline.check("dispatch")
+
+        if driver_name == "noop":                       # gateway/dispatch floor probe
+            tl.t_start_begin = tl.t_exec_begin = self._now()
+            tl.t_done = self._now()
+            self.recorder.add(label or "noop", tl)
+            return None
+
+        driver = host.drivers[driver_name]
+        tl.t_start_begin = self._now()
+        ex = self._claim_or_start(driver, dep, tl, preboot)
+        try:
+            host.check_alive()
+        except Exception:
+            # the host died under a live executor: exit it so neither its
+            # device memory nor its residency leaks while the dispatcher
+            # re-routes
+            self._exit(ex)
+            raise
+        tl.t_exec_begin = self._now()
+        try:
+            device_tokens = torch.from_numpy(np.asarray(tokens, np.int32)).to(dep.device)
+            out = ex.run(device_tokens, timeline=tl).cpu().numpy()
+        except Exception:
+            # a crashed executor must never return to a pool — exit it so the
+            # dispatcher's retry instantiates a FRESH one
+            self._exit(ex)
+            raise
+        driver.finish(dep, ex)
+        # exited now — account exact residency
+        self.residency.add_residency(ex.nbytes, ex.resident_seconds, ex.busy_seconds)
+        host.check_alive()
+        tl.t_done = self._now()
+        self.recorder.add(label or f"{dep.name}:{driver_name}", tl)
+        return out

@@ -11,9 +11,13 @@ Every stage's duration lands in ``Timeline.stage_s[stage.name]`` and the
 combined wall time in ``Timeline.t_boot_wall``, so wall < sum of stages is
 the overlap win.
 
-The stages ported so far are the unikernel driver's: ``FetchProgram`` (no
-host program tier yet), ``DeserializeProgram``, ``RestoreWeightsHost``
-(v1 snapshots), ``DevicePut`` and ``Finalize``.
+The stages ported so far are the unikernel driver's: ``FetchProgram`` and
+``DeserializeProgram`` through the host's program tier, ``RestoreWeightsHost``
+(a delta restore through the host's chunk tier for v2 snapshots, mmap for
+v1), ``DevicePut`` and ``Finalize``. A stage that took a tier path records
+under the name of the path (``fetch_program_cached``, ``fetch_peer``,
+``restore_weights_cached``, ``restore_delta`` with ``fetch_chunks_peer`` /
+``fetch_chunks_store`` carved out of it).
 
 ``DevicePut`` is the port's counterpart of ``jax.device_put`` streaming: a
 read-ahead thread copies ~32 MB chunks of the (mmap'd) host leaves into
@@ -38,8 +42,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import pytree
+from repro_torch.core.blobstore import delta_restore
 from repro_torch.core.executor import Executor
 from repro_torch.core.metrics import Timeline, now
+from repro_torch.core.scheduler import ProgramArtifact
 
 
 def spawn_future(fn: Callable[[], Any], name: str) -> Future:
@@ -70,14 +76,30 @@ class BootCancelled(RuntimeError):
 class BootContext:
     """Mutable scratch space a plan's stages fill in as the boot progresses."""
 
-    def __init__(self, dep, driver_name: str) -> None:
+    def __init__(self, dep, driver_name: str, host=None) -> None:
         self.dep = dep
         self.driver_name = driver_name
+        # the Host this boot runs on (None for host-less boots); fetch stages
+        # consult host.cache — the tiered RAM cache of
+        # repro_torch.core.scheduler — before the global stores
+        self.host = host
         self.program_payload: Optional[bytes] = None
         self.program: Optional[Callable] = None
+        # the host program-tier entry serving this boot, if any: after
+        # DeserializeProgram runs, the loaded program is parked back on it so
+        # the next boot of this image on this host skips the deserialize
+        self.program_entry: Any = None
         self.host_params: Any = None
         self.params: Any = None
         self.executor: Optional[Executor] = None
+        # delta-restore accounting: bytes that moved for this boot vs bytes
+        # already resident in the host chunk tier, and the integrity trail
+        # (chunks re-hashed on read / re-fetched after a peer mismatch).
+        # Written only by the weights track; read after the tracks join.
+        self.bytes_fetched: int = 0
+        self.bytes_deduped: int = 0
+        self.chunks_rehashed: int = 0
+        self.chunks_refetched: int = 0
         self.cancel: Optional[threading.Event] = None   # the handle's cancel
         # request deadline (duck-typed: ``expired()`` / ``check(what)``);
         # stages and chunk loops treat expiry like a cancel
@@ -85,7 +107,15 @@ class BootContext:
 
 
 class Stage:
-    """One named, timed unit of boot work. Subclasses set ``name``/``track``."""
+    """One named, timed unit of boot work. Subclasses set ``name``/``track``.
+
+    Stage instances are built fresh for every plan, so a stage whose work
+    depends on the path it took (host-tier hit, peer transfer, global store)
+    may rebind ``self.name`` inside ``run``; the engine records its time under
+    that name. A stage may also set ``self.extra_s`` (sub-stage name ->
+    seconds): the engine records those beside the stage and carves them out
+    of the stage's own time, so ``stage_s`` stays a partition of real work.
+    """
 
     name: str = "stage"
     track: str = TRACK_JOIN
@@ -101,13 +131,38 @@ class Stage:
 
 
 class FetchProgram(Stage):
-    """Acquire the serialized program payload from the image registry."""
+    """Acquire the serialized program payload, cheapest source first.
+
+    With a host tier the order is: host RAM (records as
+    ``fetch_program_cached``), then a live peer's tier (``fetch_peer``), then
+    the global image registry (``fetch_program``). Each miss inserts the
+    payload into the host tier, so the next boot routed here hits RAM.
+    """
 
     name = "fetch_program"
     track = TRACK_PROGRAM
 
     def run(self, ctx: BootContext) -> None:
-        ctx.program_payload = ctx.dep.fetch_program_payload()
+        cache = getattr(ctx.host, "cache", None)
+        if cache is None:
+            ctx.program_payload = ctx.dep.fetch_program_payload()
+            return
+        key = ctx.dep.program_key()
+        entry = cache.get("program", key)
+        if entry is not None:
+            self.name = "fetch_program_cached"
+        else:
+            entry = cache.fetch_from_peer("program", key)
+            if entry is not None:
+                self.name = "fetch_peer"
+            else:
+                entry = ProgramArtifact(ctx.dep.fetch_program_payload())
+                cache.fetch_from_store("program", key, entry, entry.nbytes)
+        if entry.loaded is not None:           # already loaded on this host
+            ctx.program = entry.loaded
+        else:
+            ctx.program_payload = entry.payload
+            ctx.program_entry = entry
 
 
 class DeserializeProgram(Stage):
@@ -117,12 +172,27 @@ class DeserializeProgram(Stage):
     track = TRACK_PROGRAM
 
     def run(self, ctx: BootContext) -> None:
+        if ctx.program is not None:            # the host tier's loaded program
+            return
         ctx.program = ctx.dep.cache.deserialize_program(ctx.program_payload)
         ctx.program_payload = None
+        if ctx.program_entry is not None:
+            # park the loaded program on the host tier entry: later boots of
+            # this image on this host skip the deserialize (two boots racing
+            # here both load it, and one load is wasted)
+            ctx.program_entry.loaded = ctx.program
+            ctx.program_entry = None
 
 
 class RestoreWeightsHost(Stage):
-    """Materialize host-side weights from the deployment's v1 snapshot (mmap)."""
+    """Materialize host-side weights: a delta restore through the host chunk
+    tier (v2 snapshots) or the snapshot's mmap'd files (v1).
+
+    A fully memoized tree records as ``restore_weights_cached``; otherwise,
+    with a host tier, the stage lands as ``restore_delta`` with
+    ``fetch_chunks_peer`` / ``fetch_chunks_store`` sub-timings, and the
+    moved/skipped bytes go to ``Timeline.bytes_fetched`` / ``bytes_deduped``.
+    """
 
     name = "restore_weights_host"
     track = TRACK_WEIGHTS
@@ -134,7 +204,27 @@ class RestoreWeightsHost(Stage):
                 "come with the cold_jit drivers)")
 
     def run(self, ctx: BootContext) -> None:
-        ctx.host_params = ctx.dep.snapshots.load_host(ctx.dep.image.key)
+        dep = ctx.dep
+        key = dep.image.key
+        if not (dep.snapshots.blobs is not None and dep.snapshots.is_chunked(key)):
+            ctx.host_params = dep.snapshots.load_host(key)
+            return
+        cache = getattr(ctx.host, "cache", None)
+        tree, stats = delta_restore(dep.snapshots, key, cache)
+        if stats.source == "cached":
+            self.name = "restore_weights_cached"
+        elif cache is not None:
+            self.name = "restore_delta"
+            self.extra_s = {}
+            if stats.t_peer_s > 0.0:
+                self.extra_s["fetch_chunks_peer"] = stats.t_peer_s
+            if stats.t_store_s > 0.0:
+                self.extra_s["fetch_chunks_store"] = stats.t_store_s
+        ctx.bytes_fetched += stats.bytes_fetched
+        ctx.bytes_deduped += stats.bytes_deduped
+        ctx.chunks_rehashed += stats.chunks_rehashed
+        ctx.chunks_refetched += stats.chunks_refetched
+        ctx.host_params = tree
 
 
 class DevicePut(Stage):
@@ -314,10 +404,16 @@ class BootPlan:
 
 class BootResult:
     def __init__(self, executor: Executor, stage_s: Dict[str, float],
-                 wall_s: float, t_first_ready: float = 0.0) -> None:
+                 wall_s: float, bytes_fetched: int = 0,
+                 bytes_deduped: int = 0, t_first_ready: float = 0.0,
+                 chunks_rehashed: int = 0, chunks_refetched: int = 0) -> None:
         self.executor = executor
         self.stage_s = stage_s
         self.wall_s = wall_s
+        self.bytes_fetched = bytes_fetched
+        self.bytes_deduped = bytes_deduped
+        self.chunks_rehashed = chunks_rehashed
+        self.chunks_refetched = chunks_refetched
         self.t_first_ready = t_first_ready
 
 
@@ -389,21 +485,27 @@ class BootHandle:
 class BootEngine:
     """Executes BootPlans: concurrent tracks, per-stage timing, cancellation."""
 
-    def execute(self, plan: BootPlan, dep, tl: Timeline, driver_name: str) -> Executor:
+    def execute(self, plan: BootPlan, dep, tl: Timeline, driver_name: str,
+                host=None) -> Executor:
         """Synchronous boot: run the plan, stamp ``tl``, return the executor."""
-        result = self._run(plan, dep, driver_name, cancel=None,
+        result = self._run(plan, dep, driver_name, cancel=None, host=host,
                            deadline=getattr(tl, "deadline", None))
-        tl.record_boot(result.stage_s, result.wall_s, t_first_ready=result.t_first_ready)
+        tl.record_boot(result.stage_s, result.wall_s,
+                       bytes_fetched=result.bytes_fetched,
+                       bytes_deduped=result.bytes_deduped,
+                       t_first_ready=result.t_first_ready,
+                       chunks_rehashed=result.chunks_rehashed,
+                       chunks_refetched=result.chunks_refetched)
         return result.executor
 
-    def launch(self, plan: BootPlan, dep, driver_name: str) -> BootHandle:
+    def launch(self, plan: BootPlan, dep, driver_name: str, host=None) -> BootHandle:
         """Speculative pre-boot: run the plan on a background thread."""
         handle = BootHandle(dep, driver_name)
 
         def run() -> None:
             try:
                 result = self._run(plan, dep, driver_name, cancel=handle._cancel,
-                                   on_stage=handle._note_stage)
+                                   host=host, on_stage=handle._note_stage)
             except BaseException as e:  # noqa: BLE001 - relayed via claim()
                 handle._finish(None, e)
             else:
@@ -414,9 +516,9 @@ class BootEngine:
 
     # ------------------------------------------------------------- internal
     def _run(self, plan: BootPlan, dep, driver_name: str,
-             cancel: Optional[threading.Event], deadline=None,
+             cancel: Optional[threading.Event], host=None, deadline=None,
              on_stage=None) -> BootResult:
-        ctx = BootContext(dep, driver_name)
+        ctx = BootContext(dep, driver_name, host=host)
         ctx.cancel = cancel
         ctx.deadline = deadline
         stage_s: Dict[str, float] = {}
@@ -433,8 +535,15 @@ class BootEngine:
                         deadline.check(f"boot stage {stage.name}")
                     t0 = now()
                     stage.run(ctx)
+                    dt = now() - t0
+                    # sub-stage splits, read from this stage's instance on
+                    # this track's thread, are carved out of its own time
+                    extras = getattr(stage, "extra_s", None)
                     with timing_lock:
-                        stage_s[stage.name] = now() - t0
+                        if extras:
+                            stage_s.update(extras)
+                            dt = max(0.0, dt - sum(extras.values()))
+                        stage_s[stage.name] = dt
                     if on_stage is not None:
                         on_stage(stage.name)
             except BaseException as e:  # noqa: BLE001 - re-raised below
@@ -459,7 +568,12 @@ class BootEngine:
             raise errors[0]
         if ctx.executor is None:
             raise RuntimeError(f"plan built no executor: {plan}")
-        return BootResult(ctx.executor, stage_s, now() - t_begin, t_first_ready=now())
+        return BootResult(ctx.executor, stage_s, now() - t_begin,
+                          bytes_fetched=ctx.bytes_fetched,
+                          bytes_deduped=ctx.bytes_deduped,
+                          t_first_ready=now(),
+                          chunks_rehashed=ctx.chunks_rehashed,
+                          chunks_refetched=ctx.chunks_refetched)
 
     @staticmethod
     def _dispose(ctx: BootContext) -> None:

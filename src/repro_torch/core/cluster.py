@@ -1,19 +1,19 @@
 """Virtual multi-host cluster: placement targets + failure injection.
 
 Port of ``repro.core.cluster``. Each host's driver table is the port's
-``make_drivers`` (``unikernel`` only so far); the JAX module's per-host
-artifact cache waits for the control-plane slice (see
-:mod:`repro_torch.core.scheduler`).
+``make_drivers`` (``unikernel`` only so far).
 
 Each Host models one machine: a bounded slot pool (the paper's 24-core server that
 degrades past 20 parallel starts), its own driver instances (so warm pools and fork
-donors are per-host state, exactly like container pools are per-machine), and a
-liveness flag. ``kill()`` simulates node failure: in-flight work raises HostFailure
+donors are per-host state, exactly like container pools are per-machine), a tiered
+artifact cache (program payloads + refcounted snapshot chunks in host RAM — see
+repro_torch.core.scheduler and repro_torch.core.blobstore), and a liveness flag. ``kill()`` simulates node failure: in-flight work raises HostFailure
 at the next lifecycle boundary and the dispatcher re-routes — stateless cold-only
 executors make this loss-free, which is the paper's predictability argument.
 
-Routing lives in the Scheduler: ``route(image_key, bucket_rows)`` blends
-rendezvous-hashed replica sets with live load.
+Routing lives in the Scheduler: ``route(image_key, bucket_rows)`` blends cache
+affinity (rendezvous-hashed replica sets + actual tier residency) with live load,
+so per-boot artifact cost drops as hosts are added instead of staying flat.
 
 Invariants: ``Host.load`` counts exactly the work that entered the pool —
 every increment has a matching decrement, including when the pool rejects a
@@ -29,7 +29,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, List, Optional
 
 from repro_torch.core.drivers import make_drivers
-from repro_torch.core.scheduler import Scheduler
+from repro_torch.core.scheduler import HostArtifactCache, Scheduler, SchedulerConfig
 
 
 class HostFailure(RuntimeError):
@@ -37,11 +37,13 @@ class HostFailure(RuntimeError):
 
 
 class Host:
-    def __init__(self, host_id: int, n_slots: int = 4) -> None:
+    def __init__(self, host_id: int, n_slots: int = 4, on_exit=None,
+                 cache: Optional[HostArtifactCache] = None) -> None:
         self.host_id = host_id
         self.n_slots = n_slots
         self.alive = True
-        self.drivers = make_drivers()
+        self.cache = cache
+        self.drivers = make_drivers(on_exit=on_exit, host=self)
         self._pool = ThreadPoolExecutor(max_workers=n_slots,
                                         thread_name_prefix=f"host{host_id}")
         self._inflight = 0
@@ -90,15 +92,22 @@ class Host:
 
 
 class Cluster:
-    def __init__(self, n_hosts: int = 1, slots_per_host: int = 4) -> None:
-        self.scheduler = Scheduler(self)
+    def __init__(self, n_hosts: int = 1, slots_per_host: int = 4, on_exit=None,
+                 scheduler: Optional[SchedulerConfig] = None) -> None:
+        self.scheduler = Scheduler(self, scheduler or SchedulerConfig())
         self._slots_per_host = slots_per_host
+        self._on_exit = on_exit
         self._lock = threading.Lock()
         self._next_id = n_hosts
         # the hosts list is copy-on-write: add/remove swap in a fresh list so
         # concurrent iterators (scheduler scoring, shutdown, reports) always
         # see a consistent snapshot without taking the membership lock
-        self.hosts: List[Host] = [Host(i, slots_per_host) for i in range(n_hosts)]
+        self.hosts: List[Host] = [self._make_host(i, slots_per_host)
+                                  for i in range(n_hosts)]
+
+    def _make_host(self, host_id: int, n_slots: int) -> Host:
+        return Host(host_id, n_slots, on_exit=self._on_exit,
+                    cache=self.scheduler.make_cache(host_id))
 
     def alive_hosts(self) -> List[Host]:
         return [h for h in self.hosts if h.alive]
@@ -123,7 +132,7 @@ class Cluster:
         with self._lock:
             host_id = self._next_id
             self._next_id += 1
-            host = Host(host_id, n_slots or self._slots_per_host)
+            host = self._make_host(host_id, n_slots or self._slots_per_host)
             self.hosts = self.hosts + [host]
         return host
 
@@ -145,7 +154,7 @@ class Cluster:
     def route(self, image_key: Optional[str] = None,
               bucket_rows: Optional[int] = None,
               exclude: Optional[set] = None, strict: bool = False) -> Host:
-        """Replica-set placement (falls back to least-loaded for key-less
+        """Affinity-aware placement (falls back to least-loaded for key-less
         work). ``strict=True`` raises instead of re-landing inside ``exclude``
         — the hedge path must never back up onto the straggler's own host."""
         host = self.scheduler.select(image_key, bucket_rows,

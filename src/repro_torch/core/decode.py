@@ -70,6 +70,7 @@ class DecodeConfig:
     max_new: Optional[int] = None  # decode budget cap (None: the deploy spec's)
     cool_after_s: float = 0.25     # quiet period before cooling to zero
     eos_token: Optional[int] = None  # greedy token that ends a request early
+    driver: str = "unikernel"      # which host driver boots the executor
 
 
 @dataclasses.dataclass
@@ -278,7 +279,7 @@ class DecodeScheduler:
         if self._ex is not None:
             return
         host = self.cluster.route(self.dep.image.key)
-        driver = host.drivers["unikernel"]          # the one driver ported so far
+        driver = host.drivers[self.cfg.driver]
         tl.t_start_begin = self._now()
         ex = driver.start(self.dep, tl)
         try:

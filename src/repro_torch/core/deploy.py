@@ -9,7 +9,8 @@
      accepted only if the loaded program gives the eager program's tokens,
      and deploy raises otherwise (the JAX package's in-process fallback for
      XLA:CPU's AOT loader has no counterpart here),
-  4. write the v1 weight snapshot and the ImageManifest.
+  4. write the weight snapshot (v2 chunks when the store has a blob store,
+     as the Gateway's does; v1 files otherwise) and the ImageManifest.
 
 ``Deployment.ensure_decode`` builds the continuous-batching decode bundle
 (the admit and step programs of :mod:`repro_torch.core.decode`) once per
@@ -313,12 +314,19 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
     snapshot_bytes = snapshots.save(key, params)
     lap("snapshot")
     build_seconds = now() - t_begin
+    extra = {"program_format": "torch.export", "device": str(device)}
+    if snapshots.blobs is not None:
+        # chunked (v2) snapshot: the manifest geometry, for dedup reports
+        index = snapshots.read_index(key)
+        extra.update(snapshot_format=2,
+                     snapshot_chunks=sum(len(e["chunks"]) for e in index["leaves"]),
+                     chunk_bytes=index["chunk_bytes"])
     manifest = ImageManifest(
         key=key, function=spec.name,
         program_bytes=program_bytes, snapshot_bytes=snapshot_bytes,
         param_count=int(sum(t.numel() for t in pytree.leaves(params))),
         built_at=now(), build_seconds=build_seconds,
-        extra={"program_format": "torch.export", "device": str(device)},
+        extra=extra,
     )
     cache.put_manifest(key, manifest)
     return Deployment(spec=spec, image=ExecutorImage(manifest=manifest, spec=spec),

@@ -1,0 +1,303 @@
+"""Gateway: the platform front door (port of ``repro.core.gateway``, cold mode).
+
+Composes the whole stack:
+
+    Gateway -> Dispatcher -> (Cluster of Hosts) -> Agent -> Driver -> Executor
+
+``mode='cold'`` is the paper's proposal: every invoke is a unikernel cold
+start, no pools, trivial scaling. Deploy writes the image's program into the
+CompileCache and its weights as a v2 chunked snapshot into a global
+ChunkStore, so every host's boot goes through its program tier and its chunk
+tier (a delta restore). ``decode=`` adds the continuous-batching decode tier
+(:class:`repro_torch.core.decode.DecodeScheduler`) behind
+``invoke_decode_async``. The executors run on ``device`` — the GPU unless the
+caller asks for the CPU — and nothing falls back to another device.
+
+Not ported yet, and refused rather than run as something else:
+``mode='warm'`` and ``batching=`` (the warm and pool drivers, the coalescer
+and its bucket programs: ROADMAP A4b) and ``forecast=`` (the predictive
+pre-boot planner: ROADMAP A7).
+
+Invariants: ``shutdown`` drains every decode loop and stops every thread the
+gateway started (the shared timer, the host pools); deployments are
+immutable once published to ``self.deployments``.
+"""
+from __future__ import annotations
+
+import tempfile
+import threading
+from concurrent.futures import Future
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+
+from repro_torch.core.agent import Agent
+from repro_torch.core.artifact import FunctionSpec
+from repro_torch.core.autoscaler import ColdOnlyScaler
+from repro_torch.core.blobstore import ChunkStore
+from repro_torch.core.cluster import Cluster
+from repro_torch.core.compile_cache import CompileCache
+from repro_torch.core.decode import DecodeConfig, DecodeScheduler
+from repro_torch.core.deploy import Deployment, deploy
+from repro_torch.core.dispatcher import Dispatcher
+from repro_torch.core.metrics import LatencyStats, Recorder, ResidencyTracker
+from repro_torch.core.metrics import now as _default_now
+from repro_torch.core.resilience import (AdmissionController, AdmissionRejected,
+                                         Deadline, ResilienceConfig)
+from repro_torch.core.scheduler import SchedulerConfig
+from repro_torch.core.simclock import Clock
+from repro_torch.core.snapshot import SnapshotStore
+
+
+class Gateway:
+    def __init__(self, *, n_hosts: int = 1, slots_per_host: int = 4,
+                 mode: str = "cold", work_dir: Optional[str] = None,
+                 hedging: bool = True, speculative: bool = False,
+                 batching=False,
+                 scheduler: Optional[SchedulerConfig] = None,
+                 clock: Optional[Clock] = None,
+                 default_driver: Optional[str] = None,
+                 resilience: Union[bool, ResilienceConfig, None] = None,
+                 forecast=None,
+                 decode: Union[bool, DecodeConfig, None] = None,
+                 device="cuda") -> None:
+        if mode == "warm":
+            raise NotImplementedError(
+                "Gateway(mode='warm') needs the warm driver and its autoscaler, "
+                "not ported yet (ROADMAP A4b)")
+        if mode != "cold":
+            raise ValueError(f"mode must be 'cold' or 'warm', got {mode!r}")
+        if batching:
+            raise NotImplementedError(
+                "Gateway(batching=...) needs the coalescer and its bucket programs, "
+                "not ported yet (ROADMAP A4b)")
+        if forecast:
+            raise NotImplementedError(
+                "Gateway(forecast=...) needs the predictive pre-boot planner, "
+                "not ported yet (ROADMAP A7)")
+        self.mode = mode
+        self.device = device
+        self._default_driver = default_driver
+        self.work_dir = work_dir or tempfile.mkdtemp(prefix="repro_torch_faas_")
+        Path(self.work_dir).mkdir(parents=True, exist_ok=True)
+        self.cache = CompileCache(Path(self.work_dir) / "images")
+        # the global chunk store makes every snapshot a v2 chunk manifest:
+        # content-addressed, dedup'd across functions, delta-restorable
+        self.blobs = ChunkStore(Path(self.work_dir) / "blobs")
+        self.snapshots = SnapshotStore(Path(self.work_dir) / "snapshots",
+                                       blobs=self.blobs)
+        self.recorder = Recorder()
+        self.residency = ResidencyTracker()
+        self.cluster = Cluster(n_hosts=n_hosts, slots_per_host=slots_per_host,
+                               on_exit=self._account_exit, scheduler=scheduler)
+        self.agent = Agent(self.recorder, self.residency, clock=clock)
+        self._now = clock.now if clock is not None else _default_now
+        self._clock = clock
+        # resilience=True (or a ResilienceConfig) adds per-request deadlines,
+        # early shedding of deadline-infeasible work, and a brownout ladder
+        # (hedging and speculation off) that engages under overload
+        self.res_cfg: Optional[ResilienceConfig] = None
+        self.admission: Optional[AdmissionController] = None
+        if resilience:
+            self.res_cfg = resilience if isinstance(resilience, ResilienceConfig) \
+                else ResilienceConfig()
+            self.admission = AdmissionController(
+                self.res_cfg, capacity_slots=n_hosts * slots_per_host)
+        self.dispatcher = Dispatcher(self.cluster, self.agent, hedging=hedging,
+                                     speculative=speculative, clock=clock,
+                                     resilience=self.res_cfg)
+        self.deployments: Dict[str, Deployment] = {}
+        # decode=True (or a DecodeConfig) adds the step-granular continuous
+        # batching tier: one DecodeScheduler per deployment, with its paged KV
+        # pool and deploy-time admit/step programs
+        self.decode_cfg: Optional[DecodeConfig] = None
+        self.decoders: Dict[str, DecodeScheduler] = {}
+        if decode:
+            self.decode_cfg = decode if isinstance(decode, DecodeConfig) \
+                else DecodeConfig()
+        self.scaler = ColdOnlyScaler()
+        self.scaler.start()
+        self._lock = threading.Lock()
+
+    # ------------------------------------------------------------------ deploy
+    def deploy(self, spec: FunctionSpec) -> Deployment:
+        """Build the ExecutorImage (the `fn deploy` + IncludeOS `boot` step)
+        on the gateway's device, and the decode bundle when the decode tier
+        is on."""
+        dep = deploy(spec, self.cache, self.snapshots, self.work_dir, device=self.device)
+        with self._lock:
+            self.deployments[spec.name] = dep
+        if self.decode_cfg is not None:
+            old = self.decoders.get(spec.name)
+            if old is not None:
+                # re-deploy of the same name: drain + cool the old scheduler
+                # first, or its loop thread and any booted executor leak with
+                # residency never accounted
+                old.close()
+            # decode bundle (admit + step) is a deploy-time artifact: built
+            # here, never on a request
+            self.decoders[spec.name] = DecodeScheduler(
+                dep, self.cluster, self.recorder, self.decode_cfg,
+                on_exit=self._account_exit, clock=self._clock)
+        return dep
+
+    # ------------------------------------------------------------------ invoke
+    def default_driver(self) -> str:
+        if self._default_driver is not None:
+            return self._default_driver
+        return "unikernel"
+
+    def invoke_async(self, fn_name: str, tokens: Optional[np.ndarray] = None,
+                     driver: Optional[str] = None, label: Optional[str] = None,
+                     speculative: Optional[bool] = None,
+                     deadline_s: Optional[float] = None) -> Future:
+        """Submit one request; the Future resolves to the generated tokens
+        ([batch, decode_steps] int32, numpy)."""
+        dep = self.deployments[fn_name]
+        driver = driver or self.default_driver()
+        self.scaler.observe_arrival(fn_name)
+        if tokens is None:
+            tokens = dep.example_tokens()
+
+        # ---- resilience front door: deadline mint + admission + brownout
+        deadline = None
+        hedging: Optional[bool] = None
+        if deadline_s is None and self.res_cfg is not None:
+            deadline_s = self.res_cfg.default_deadline_s
+        if deadline_s is not None:
+            deadline = Deadline.after(deadline_s)
+        if self.admission is not None:
+            try:
+                self.admission.try_admit(deadline)
+            except AdmissionRejected as e:
+                # shed synchronously but settle asynchronously-shaped: callers
+                # treat invoke_async uniformly, a shed is just a failed Future
+                f: Future = Future()
+                f.set_exception(e)
+                return f
+            t_admit = self._now()
+            if self.admission.brownout:
+                # brownout ladder: stop paying for tail insurance
+                hedging = False
+                speculative = False
+
+        fut = self.dispatcher.submit(dep, tokens, driver, label=label,
+                                     speculative=speculative,
+                                     deadline=deadline, hedging=hedging)
+        if self.admission is not None:
+            fut.add_done_callback(
+                lambda _f: self.admission.release(self._now() - t_admit))
+        return fut
+
+    def invoke_decode_async(self, fn_name: str,
+                            tokens: Optional[np.ndarray] = None,
+                            max_new: Optional[int] = None,
+                            label: Optional[str] = None,
+                            deadline_s: Optional[float] = None) -> Future:
+        """Submit one request to the continuous-batching decode loop.
+
+        The request joins the step loop at the next admission, decodes one
+        token per step next to whoever else is resident, and leaves at
+        EOS/budget — paying for exactly the tokens it generates. Resolves to
+        the generated token ids ([n] int32).
+        """
+        decoder = self.decoders[fn_name]
+        self.scaler.observe_arrival(fn_name)
+        if tokens is None:
+            tokens = decoder.dep.example_tokens()[:1]
+        deadline = None
+        if deadline_s is None and self.res_cfg is not None:
+            deadline_s = self.res_cfg.default_deadline_s
+        if deadline_s is not None:
+            deadline = Deadline.after(deadline_s)
+        return decoder.submit(tokens, max_new=max_new, label=label,
+                              deadline=deadline)
+
+    def invoke_decode(self, fn_name: str, tokens: Optional[np.ndarray] = None,
+                      max_new: Optional[int] = None,
+                      label: Optional[str] = None, timeout: float = 600.0,
+                      deadline_s: Optional[float] = None) -> np.ndarray:
+        return np.asarray(self.invoke_decode_async(
+            fn_name, tokens, max_new=max_new, label=label,
+            deadline_s=deadline_s).result(timeout))
+
+    def invoke(self, fn_name: str, tokens: Optional[np.ndarray] = None,
+               driver: Optional[str] = None, label: Optional[str] = None,
+               timeout: float = 600.0, speculative: Optional[bool] = None,
+               deadline_s: Optional[float] = None):
+        return self.invoke_async(fn_name, tokens, driver, label,
+                                 speculative=speculative,
+                                 deadline_s=deadline_s).result(timeout)
+
+    def invoke_many(self, fn_name: str,
+                    tokens_list: Sequence[Optional[np.ndarray]],
+                    driver: Optional[str] = None, label: Optional[str] = None,
+                    timeout: float = 600.0) -> List[np.ndarray]:
+        """Submit many requests at once and gather the results in order."""
+        futs = [self.invoke_async(fn_name, t, driver, label) for t in tokens_list]
+        return [np.asarray(f.result(timeout)) for f in futs]
+
+    def noop(self, label: str = "noop", timeout: float = 60.0):
+        """The paper's /noop URL: platform overhead with no function work."""
+        return self.dispatcher.submit(None, None, "noop", label=label).result(timeout)
+
+    # ----------------------------------------------------------------- reports
+    def stats(self, label: str, field: str = "e2e") -> LatencyStats:
+        return self.recorder.stats(label, field)
+
+    def residency_summary(self) -> Dict[str, float]:
+        return self.residency.summary()
+
+    def placement_summary(self) -> Dict[str, object]:
+        """Scheduler + tiered-cache health: per-host hit/miss/evict counters and
+        bytes, fleet hit rates, peer vs store fetches, and per-host residency
+        (zero by construction for cold)."""
+        summary = self.cluster.scheduler.summary()
+        residency = self.scaler.per_host_residency(self.cluster)
+        for host_id, entry in summary["hosts"].items():
+            entry["resident_bytes"] = residency.get(host_id, 0)
+        summary["per_host_resident_bytes"] = residency
+        return summary
+
+    def resilience_summary(self) -> Dict[str, object]:
+        """Attempt amplification, retry-budget state, breaker/quarantine
+        counters, and (when admission is on) shed/brownout accounting."""
+        d = self.dispatcher
+        budget = d.retry_budget
+        out: Dict[str, object] = {
+            "submitted": d.submitted,
+            "attempts": d.attempts,
+            "attempt_amplification": d.attempts / max(d.submitted, 1),
+            "retries": d.retries,
+            "retries_denied": d.retries_denied,
+            "retry_budget": {
+                "tokens": budget.tokens,
+                "deposits": budget.deposits,
+                "spent": budget.spent,
+                "denied": budget.denied,
+            },
+            "breakers": self.cluster.scheduler.breakers.summary(),
+            "quarantine_skips": self.cluster.scheduler.quarantine_skips,
+        }
+        if self.admission is not None:
+            out["admission"] = self.admission.summary()
+        return out
+
+    def _account_exit(self, ex) -> None:
+        self.residency.add_residency(ex.nbytes, ex.resident_seconds, ex.busy_seconds)
+
+    def decode_summary(self, fn_name: str) -> Optional[Dict[str, float]]:
+        """Continuous-batching health: tokens, occupancy, admits, cooldowns."""
+        decoder = self.decoders.get(fn_name)
+        return decoder.summary() if decoder is not None else None
+
+    # ---------------------------------------------------------------- shutdown
+    def shutdown(self) -> None:
+        for decoder in self.decoders.values():
+            # drain the step loops first: a resident request holds pages and
+            # an executor whose residency must land in the tracker
+            decoder.close()
+        self.dispatcher.close()         # shared hedge-timer thread
+        self.scaler.stop()
+        self.cluster.shutdown()

@@ -1,24 +1,36 @@
-"""Weight snapshot store, v1 format (port of ``repro.core.snapshot``).
+"""Weight snapshot store (port of ``repro.core.snapshot``).
 
 A snapshot is written at deploy time in exactly the layout the executor
-consumes, so a cold start moves bytes and does nothing else:
+consumes, so a cold start moves bytes and does nothing else. Two on-disk
+formats, both the JAX package's byte for byte:
 
+v1 (a store without a blob store):
     <root>/<name>/index.json         tree structure + per-leaf path/shape/dtype
     <root>/<name>/leaf_00000.npy ... one file per leaf, in flattening order
+    Host leaves come back as CPU tensors over ``np.load(mmap_mode='r')``
+    memory: bytes page in lazily while ``DevicePut`` copies them.
 
-The on-disk layout is the JAX package's, byte for byte: leaves are numbered
-in JAX's flattening order (sorted dict keys), named by ``keystr`` paths
-(``['embed']['tok']``), and a bf16 leaf is stored as a uint16 view with the
-logical dtype in the index. A snapshot written by either package restores
-into the other with no transform.
+v2 (chunked; whenever a ``blobs`` ChunkStore is attached — the Gateway always
+attaches one):
+    <root>/<name>/index.json         tree structure + per-leaf CHUNK MANIFEST
+    <blobs>/<id[:2]>/<id>.chunk      content-addressed chunks, shared across
+                                     snapshots (refcounted in the ChunkStore)
+    ``save`` splits each leaf's raw bytes into fixed-size BLAKE2-addressed
+    chunks; a restore with a host chunk tier is a delta restore
+    (:func:`repro_torch.core.blobstore.delta_restore`): only the chunks the
+    host does not hold move.
 
-Host leaves come back as CPU tensors over ``np.load(mmap_mode='r')`` memory:
-bytes page in lazily while ``DevicePut`` copies them to the device. The
-chunked v2 format (content-addressed chunks, delta restore) comes with the
-control-plane slice; a v2 index is refused here.
+Leaves are numbered in JAX's flattening order (sorted dict keys) and named by
+``keystr`` paths (``['embed']['tok']``); a bf16 leaf is stored as a uint16
+view with the logical dtype in the index and read back with
+``Tensor.view(torch.bfloat16)``. A snapshot written by either package
+restores into the other with no transform. The v2.1 ``first_use_order`` of
+the JAX package is read (``leaf_order``) but not written: the port has no
+first-use profiling yet.
 
 Invariants: ``save`` publishes atomically (a reader never sees a partial
-snapshot); the index records the logical dtype.
+snapshot); v2 chunk refcounts are balanced — one incref per unique chunk per
+save, one decref per evict/overwrite; the index records the logical dtype.
 """
 from __future__ import annotations
 
@@ -27,20 +39,26 @@ import os
 import shutil
 import threading
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
 from repro_torch import pytree
+from repro_torch.core.blobstore import split_chunks
 from repro_torch.dtypes import from_storable, to_storable
 
 
 class SnapshotStore:
-    def __init__(self, root: str | Path) -> None:
+    def __init__(self, root: str | Path, blobs=None) -> None:
+        """``blobs`` is a :class:`repro_torch.core.blobstore.ChunkStore`; when
+        attached, ``save`` writes the v2 chunked format instead of per-leaf
+        .npy files."""
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
+        self.blobs = blobs
         self._lock = threading.Lock()
-        # parsed index.json memo, replaced on save
+        # parsed index.json memo (every boot probes is_chunked and reads the
+        # manifest); replaced on save, dropped on evict
         self._index_cache: Dict[str, Dict[str, Any]] = {}
 
     def _dir(self, name: str) -> Path:
@@ -49,9 +67,16 @@ class SnapshotStore:
     def has(self, name: str) -> bool:
         return (self._dir(name) / "index.json").exists()
 
+    def is_chunked(self, name: str) -> bool:
+        """True when this snapshot is stored in the v2 chunk-manifest format."""
+        return self.has(name) and self.read_index(name).get("format") == 2
+
     # ------------------------------------------------------------------- save
     def save(self, name: str, params) -> int:
-        """Write a v1 snapshot of a tensor tree atomically; returns stored bytes."""
+        """Write a snapshot of a tensor tree atomically; returns stored bytes
+        (v2: the leaves' logical bytes)."""
+        if self.blobs is not None:
+            return self._save_v2(name, params)
         items = pytree.flatten_with_paths(params)
         d = self._dir(name)
         tmp = d.with_name(d.name + ".tmp")
@@ -74,33 +99,141 @@ class SnapshotStore:
             self._index_cache[name] = index
         return total
 
+    def _save_v2(self, name: str, params) -> int:
+        items = pytree.flatten_with_paths(params)
+        chunk_bytes = self.blobs.chunk_bytes
+        index: Dict[str, Any] = {"format": 2, "chunk_bytes": chunk_bytes,
+                                 "leaves": [], "treedef": None}
+        raws = []
+        for path, leaf in items:
+            stored, logical = to_storable(leaf)
+            raws.append((path, list(leaf.shape), logical, str(stored.dtype),
+                         np.ascontiguousarray(stored).tobytes()))
+        # put_all writes the chunks and takes the snapshot's references inside
+        # the ChunkStore's own lock, outside this store's: read_index (every
+        # boot) must not wait behind a multi-second write
+        leaf_cid_lists = self.blobs.put_all(
+            [split_chunks(raw, chunk_bytes) for *_meta, raw in raws])
+        total = 0
+        for (path, shape, logical, stored_dtype, raw), cids in zip(raws, leaf_cid_lists):
+            total += len(raw)
+            index["leaves"].append({"path": path, "chunks": cids, "nbytes": len(raw),
+                                    "shape": shape, "dtype": logical,
+                                    "stored_dtype": stored_dtype})
+        index["treedef"] = _encode_structure(pytree.structure(params))
+        with self._lock:
+            old_cids: List[str] = []
+            if self.has(name):                   # overwrite: release old chunks
+                old = self._read_index_locked(name)
+                if old.get("format") == 2:
+                    old_cids = [c for e in old["leaves"] for c in e["chunks"]]
+            d = self._dir(name)
+            tmp = d.with_name(d.name + ".tmp")
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir(parents=True)
+            (tmp / "index.json").write_text(json.dumps(index))
+            shutil.rmtree(d, ignore_errors=True)
+            os.replace(tmp, d)                               # atomic publish
+            self._index_cache[name] = index
+            if old_cids:
+                self.blobs.decref(old_cids)
+        return total
+
     # ------------------------------------------------------------------- load
     def read_index(self, name: str) -> Dict[str, Any]:
-        """Parsed index.json; memoized until the snapshot is overwritten."""
+        """Parsed index.json (v1 file names or a v2 chunk manifest); memoized
+        until the snapshot is overwritten or evicted. Callers never mutate it."""
         with self._lock:
-            index = self._index_cache.get(name)
-            if index is None:
-                index = json.loads((self._dir(name) / "index.json").read_text())
-                if index.get("format") == 2:
-                    raise NotImplementedError(
-                        f"snapshot {name!r} is in the chunked v2 format, not yet ported")
-                self._index_cache[name] = index
-            return index
+            return self._read_index_locked(name)
+
+    def _read_index_locked(self, name: str) -> Dict[str, Any]:
+        index = self._index_cache.get(name)
+        if index is None:
+            index = json.loads((self._dir(name) / "index.json").read_text())
+            self._index_cache[name] = index
+        return index
+
+    @staticmethod
+    def index_nbytes(index: Dict[str, Any]) -> int:
+        """Logical stored bytes of a v2 index (sum of leaf byte lengths)."""
+        return sum(int(e["nbytes"]) for e in index["leaves"])
+
+    def chunk_ids(self, name: str) -> List[str]:
+        """Every chunk id of a v2 snapshot, in manifest order (with repeats)."""
+        return [c for e in self.read_index(name)["leaves"] for c in e["chunks"]]
+
+    @staticmethod
+    def leaf_order(index: Dict[str, Any]) -> List[int]:
+        """Leaf ordinals in restore order: the manifest's ``first_use_order``
+        where present (unknown paths skipped, uncovered leaves appended in
+        ordinal order), else identity. Always a permutation."""
+        order = index.get("first_use_order")
+        n = len(index["leaves"])
+        if not order:
+            return list(range(n))
+        by_path = {e["path"]: i for i, e in enumerate(index["leaves"])}
+        out = [by_path[p] for p in order if p in by_path]
+        covered = set(out)
+        out.extend(i for i in range(n) if i not in covered)
+        return out
+
+    @staticmethod
+    def _leaf_from_chunks(entry: Dict[str, Any], chunk_bytes: Callable[[str], bytes]):
+        # joined into a bytearray (one copy, as b"".join would make) so the
+        # buffer is writable and torch.from_numpy takes it without its
+        # non-writable warning; the assembled tree is memoized on the host
+        # tier and every later boot only reads it (DevicePut copies it out)
+        raw = bytearray().join(chunk_bytes(cid) for cid in entry["chunks"])
+        stored = np.frombuffer(raw, dtype=np.dtype(entry["stored_dtype"]))
+        return from_storable(stored, entry["dtype"]).reshape(entry["shape"])
+
+    def assemble_tree(self, index: Dict[str, Any], chunk_bytes: Callable[[str], bytes],
+                      order: Optional[List[int]] = None) -> Any:
+        """Rebuild the host tree of a v2 index from a chunk-byte source (any
+        mix of tier-resident, peer-fetched and store-fetched chunks). ``order``
+        sets the fetch order only; leaves land at their ordinals."""
+        entries = index["leaves"]
+        if order is None:
+            order = self.leaf_order(index)
+        leaves: List[Any] = [None] * len(entries)
+        for i in order:
+            leaves[i] = self._leaf_from_chunks(entries[i], chunk_bytes)
+        return _rebuild_structure(index["treedef"], leaves)
 
     def iter_host_leaves(self, name: str):
-        """Yield host leaves (CPU tensors over mmap'd files) in ordinal order."""
+        """Yield host leaves (CPU tensors) in ordinal order: v1 over mmap'd
+        files, v2 assembled from the global chunk store."""
         d = self._dir(name)
-        for e in self.read_index(name)["leaves"]:
-            arr = np.load(d / e["file"], mmap_mode="r")
-            yield from_storable(arr, e["dtype"]).reshape(e["shape"])
+        index = self.read_index(name)
+        for e in index["leaves"]:
+            if index.get("format") == 2:
+                yield self._leaf_from_chunks(e, self.blobs.get)
+            else:
+                arr = np.load(d / e["file"], mmap_mode="r")
+                yield from_storable(arr, e["dtype"]).reshape(e["shape"])
 
     def load_host(self, name: str) -> Any:
-        """Load as a tree of CPU tensors over mmap'd files. No device transfer."""
+        """Load as a tree of CPU tensors. No device transfer."""
         index = self.read_index(name)
         return _rebuild_structure(index["treedef"], list(self.iter_host_leaves(name)))
 
     def nbytes(self, name: str) -> int:
+        if self.has(name):
+            index = self.read_index(name)
+            if index.get("format") == 2:
+                return self.index_nbytes(index)
         return sum(f.stat().st_size for f in self._dir(name).glob("leaf_*.npy"))
+
+    def evict(self, name: str) -> None:
+        """Remove a snapshot; v2 releases its chunk references (shared chunks
+        survive while another snapshot references them)."""
+        with self._lock:
+            if self.blobs is not None and self.has(name):
+                index = self._read_index_locked(name)
+                if index.get("format") == 2:
+                    self.blobs.decref(c for e in index["leaves"] for c in e["chunks"])
+            self._index_cache.pop(name, None)
+            shutil.rmtree(self._dir(name), ignore_errors=True)
 
 
 # --------------------------------------------- structure (de)serialization

@@ -36,14 +36,18 @@ def test_port_sources_were_found():
     assert {"ops.py", "deploy.py", "boot.py", "chip_smoke.py", "decode.py", "paging.py",
             "cluster.py", "scheduler.py", "resilience.py",
             "paged_decode_attention.py", "mlstm.py", "ssm.py", "xlstm_1_3b.py",
-            "selective_scan.py", "moe.py", "jamba_1_5_large_398b.py"} <= names
+            "selective_scan.py", "moe.py", "jamba_1_5_large_398b.py", "gateway.py",
+            "dispatcher.py", "agent.py", "timerwheel.py", "blobstore.py", "autoscaler.py",
+            "batching.py"} <= names
 
 
 def test_importing_the_port_builds_nothing_and_loads_no_jax():
     code = ("import sys; import repro_torch.kernels.ops, repro_torch.core.drivers, "
-            "repro_torch.core.decode, repro_torch.core.cluster; "
+            "repro_torch.core.decode, repro_torch.core.cluster, repro_torch.core.gateway; "
+            "from repro_torch.core import FunctionSpec, Gateway; "
             "from repro_torch.kernels import _cuda; "
             "assert _cuda._lib is None; "
+            "import threading; assert threading.active_count() == 1, 'a thread started'; "
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ml_dtypes', 'repro')], 'JAX loaded'; print('ok')")
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT / "src")}
