@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's cold-start serve path (llama3.2-3b through the
-Gateway, xlstm-1.3b and jamba-1.5-large) and its continuous-batching decode
+Gateway, under each driver of the paper's start-path taxonomy and in warm
+mode; xlstm-1.3b and jamba-1.5-large) and its continuous-batching decode
 tier on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
@@ -60,18 +61,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    built (``ensure_decode(slots=8, page_size=16)``: export, save, load,
    verify the admit and step programs) serves 12 requests of 512 prompt
    tokens submitted in one burst through ``gw.invoke_decode_async``,
-   budgets cycling through 16, 3, 7, 16, 1, 5; then ``gw.shutdown()``,
-   which must leave no non-daemon thread; checks every budget and
-   ``gw.decode_summary``, one boot and one cool-down, and launches (flash =
-   L x admits, paged = L x steps, no contiguous decode); then holds one
-   admit call (its logits and the K/V it wrote) and one step call, each
-   replayed on clones of the pool it saw mid-run, kernel route and plain
-   route, against the plain route in float32.
+   budgets cycling through 16, 3, 7, 16, 1, 5; then the decode loop closes;
+   checks every budget and ``gw.decode_summary``, one boot and one
+   cool-down, and launches (flash = L x admits, paged = L x steps, no
+   contiguous decode); then holds one admit call (its logits and the K/V it
+   wrote) and one step call, each replayed on clones of the pool it saw
+   mid-run, kernel route and plain route, against the plain route in
+   float32.
+3e. Driver taxonomy, on phase 3's gateway and deployment (no second
+   deploy; the deployment's head/tail split must be verified,
+   ``split_ok``): each driver of ``ALL_DRIVERS`` (process, fork, unikernel,
+   unikernel_stream, paused, warm, cold_jit_cached, cold_jit) serves 2
+   requests through ``gw.invoke(..., driver=name)``, the two cold_jit
+   drivers 1 (each boot re-traces the program with ``torch.export``), then
+   ``unikernel`` and ``unikernel_stream`` one request each on a host added
+   for it (``gw.cluster.add_host()``, the other hosts held down: a first
+   boot from the store). Each request logs its stages, ``t_boot_wall``,
+   startup, execution (and TTFR for the streamed driver); every request's
+   tokens equal phase 3's request 1 and each makes L flash and L x K decode
+   launches; the streamed first boot runs the head (``restore_stream_head``,
+   ``deserialize_program_bg``, TTFR below its ``t_boot_wall``). Then a
+   ``Gateway(mode="warm")`` on the same image: request 1 a pool miss,
+   request 2 a pool hit, the warm scaler's per-host residency beside the
+   cold gateway's zero, until the idle timeout expires its pools; then both
+   gateways' ``shutdown()``, which must leave no non-daemon thread and the
+   device memory allocated within 64 MiB of its value before the phase.
 3c. The xlstm serve path, after llama's gateway is shut down: ``deploy``
    (v1 snapshot; the ``unikernel`` driver called directly) full-width
-   xlstm-1.3b (bf16, its depth cut to 2 of 6 periods of 7 mLSTM + 1 sLSTM
+   xlstm-1.3b (bf16, its depth cut to 1 of 6 periods of 7 mLSTM + 1 sLSTM
    for the time limit, random weights from the spec's seed), then the
-   serve-path checks: 3 cold requests (14 mLSTM launches each, no
+   serve-path checks: 3 cold requests (7 mLSTM launches each, no
    attention), each boot track alone, every mLSTM call of a kernel-path
    prefill against its plain version, and the prefill-logit gate against
    the plain path in float32.
@@ -113,7 +132,7 @@ GRAPH_CALLS = 200                   # wrapper calls captured in one CUDA graph (
 LLAMA_LAYERS = 8                    # of 28: the llama paths' depth, cut for the time limit
 LLAMA_ARCH = f"llama3.2-3b:{LLAMA_LAYERS}L"
 SPEC = dict(arch=LLAMA_ARCH, reduced=False, batch_size=4, prompt_len=512, decode_steps=16)
-XLSTM_PERIODS = 2                   # of 6: the xlstm path's depth, cut for the time limit
+XLSTM_PERIODS = 1                   # of 6: the xlstm path's depth, cut for the time limit
 XLSTM_ARCH = f"xlstm-1.3b:{XLSTM_PERIODS}P"
 XLSTM_SPEC = dict(SPEC, arch=XLSTM_ARCH)
 XLSTM_REQUESTS = 3
@@ -481,10 +500,8 @@ CAPTURE_ADMIT = 8                   # the admit it replays: a backfill beside li
 def decode_tier(torch, gw, dep) -> dict:
     """Phase 3b: the continuous-batching decode tier at full width, the
     decode scheduler that ``gw.deploy`` built for ``dep``, fed through
-    ``gw.invoke_decode_async``; ends with ``gw.shutdown()``. Returns the
-    kernel launches of the burst."""
-    import threading
-
+    ``gw.invoke_decode_async``; ends by closing the decode loop (the gateway
+    stays up for phase 3e). Returns the kernel launches of the burst."""
     import numpy as np
     from repro_torch import pytree
     from repro_torch.core.deploy import make_admit_fn, make_step_fn
@@ -538,19 +555,9 @@ def decode_tier(torch, gw, dep) -> dict:
             for i, (p, b) in enumerate(zip(prompts, budgets))]
     outs = [f.result(900) for f in futs]
     t_served = now()
-    threads = set(threading.enumerate())
-    gw.shutdown()                           # closes the decode loop: drain, cool
+    sched.close()                           # the decode loop: drain, cool to zero
+    sched.bundle = bundle                   # the observers hold the captured weights
     launches = ops.launch_counts()
-    t_join = time.perf_counter()
-    while time.perf_counter() - t_join < 30:
-        alive = [t.name for t in threading.enumerate() if not t.daemon
-                 and t is not threading.main_thread()]
-        if not alive:
-            break
-        time.sleep(0.05)
-    log(f"gw.shutdown(): threads before {len(threads)}, non-daemon threads left {alive}")
-    if alive:
-        raise AssertionError(f"gw.shutdown() left non-daemon threads alive: {alive}")
 
     s = gw.decode_summary(dep.name)
     if s["requests"] != N_DECODE_REQUESTS or s["tokens_generated"] != sum(budgets):
@@ -747,7 +754,7 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
     log(f"deploy {spec.name}: {time.perf_counter() - t0:.1f} s [" +
         " ".join(f"{k} {v:.2f}" for k, v in dep.build_s.items()) +
         f"] | {m.param_count} params | program {m.program_bytes} B | snapshot "
-        f"{m.snapshot_bytes} B | "
+        f"{m.snapshot_bytes} B | split_ok {dep.split_ok} | "
         f"{cfg.n_layers} layers d_model {cfg.d_model} heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads} d_ff {cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype} | "
         f"{memory_line(torch, work)}")
@@ -906,7 +913,8 @@ def gateway_path(torch, spec, work):
         f"] | {m.param_count} params | program {m.program_bytes} B | v2 snapshot "
         f"{m.snapshot_bytes} B in {m.extra['snapshot_chunks']} chunks of "
         f"{m.extra['chunk_bytes']} B (store: {int(blobs['chunks'])} chunks, "
-        f"{int(blobs['bytes'])} B, {int(blobs['dedup_hits'])} dedup hits) | {cfg.n_layers} "
+        f"{int(blobs['bytes'])} B, {int(blobs['dedup_hits'])} dedup hits) | split_ok "
+        f"{dep.split_ok} | {cfg.n_layers} "
         f"layers d_model "
         f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} {cfg.dtype} | "
         f"{memory_line(torch, work)}")
@@ -1018,7 +1026,178 @@ def gateway_path(torch, spec, work):
     prefill_gates(torch, dep, [dev], torch.from_numpy(tokens).cuda(),
                   torch.from_numpy(first["tokens"]).cuda(), work, release=lambda: None)
     del dev
-    return gw, dep, launches
+    return gw, dep, launches, first["tokens"]
+
+
+# -------------------------------------------------------------------- phase 3e
+
+TAXONOMY_REQUESTS = 2               # requests per driver in phase 3e, cut from 3 for the time limit
+RETRACE_REQUESTS = 1                # cold_jit and cold_jit_cached re-trace (~30 s) per boot
+MEMORY_SLACK = 64 << 20             # device memory allowed to stay allocated after 3e
+
+
+def tensor_bytes(torch) -> int:
+    """Device memory held by tensors. PyTorch keeps a cuBLAS workspace for
+    every (thread, stream) that ran a matmul, for the life of the process,
+    and phase 3e's new host threads add some: they are dropped first, so the
+    number counts what the port holds."""
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def driver_taxonomy(torch, gw, dep, want_tokens) -> dict:
+    """Phase 3e: the paper's driver taxonomy on phase 3's llama deployment,
+    through ``gw.invoke(..., driver=name)``.
+
+    Each driver of ``ALL_DRIVERS`` serves ``TAXONOMY_REQUESTS`` requests in
+    that order (the two cold_jit drivers ``RETRACE_REQUESTS``), then
+    ``unikernel`` and ``unikernel_stream`` one request each on a host added
+    for it (the other hosts held down meanwhile, so it is a first boot on an
+    empty-tier host, from the store). Every request gives phase 3's request-1
+    tokens and makes L flash and L x K decode launches; the streamed first
+    boot runs the head program (``restore_stream_head``, TTFR below its own
+    ``t_boot_wall``). Then a ``Gateway(mode="warm")`` serving the same image
+    (its stores shared: no second deploy): a pool miss, a pool hit, and the
+    warm scaler's residency beside the cold gateway's zero, until its idle
+    timeout expires the pools. Ends with both gateways' ``shutdown()``: no
+    non-daemon thread left, and device memory back within ``MEMORY_SLACK``
+    of its value before the phase. Returns the kernel launches of the
+    phase's requests."""
+    import threading
+
+    import numpy as np
+    from repro_torch.core import Gateway
+    from repro_torch.core.drivers import ALL_DRIVERS
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.kernels import ops
+
+    allocated0 = tensor_bytes(torch)
+    cfg, spec, name = dep.model.cfg, dep.spec, dep.name
+    tokens = dep.example_tokens(seed=1)
+    want = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * spec.decode_steps,
+            "paged_decode_attention": 0, "mlstm": 0, "selective_scan": 0}
+    log(f"phase 3e on {name}: split_ok {dep.split_ok} (head reads {len(dep.head_leaves)} "
+        f"leaves) | first-use order {dep.first_use_order} | device memory allocated "
+        f"{allocated0} B")
+    if not dep.split_ok:
+        raise AssertionError("llama's deployment published no verified head/tail split")
+
+    hosts = {}
+    handle = gw.agent.handle
+
+    def observed_handle(host, dep_, tokens_, driver_name, tl, *args, **kwargs):
+        hosts[id(tl)] = host.host_id
+        return handle(host, dep_, tokens_, driver_name, tl, *args, **kwargs)
+
+    def serve(driver, label, gateway=gw):
+        before = ops.launch_counts()
+        out = gateway.invoke(name, tokens, driver=driver, label=label, timeout=900)
+        after = ops.launch_counts()
+        grew = {k: after[k] - before[k] for k in after}
+        (tl,) = gateway.recorder.timelines(label)
+        if driver == "unikernel_stream":        # the tail's stages land in the background
+            t_wait = time.perf_counter()
+            while "deserialize_program_bg" not in tl.stage_s and \
+                    time.perf_counter() - t_wait < 300:
+                time.sleep(0.01)
+        stages = " ".join(f"{k} {v:.3f}" for k, v in tl.stage_s.items())
+        ttfr = f" | TTFR {tl.ttfr:.3f} s" if driver == "unikernel_stream" else ""
+        log(f"{label}: host {hosts.get(id(tl), '-')} | boot [{stages}] t_boot_wall "
+            f"{tl.t_boot_wall:.3f} s | startup {tl.startup:.3f} s | execution "
+            f"{tl.execution:.3f} s{ttfr} | e2e {tl.e2e:.3f} s | launches {grew}")
+        if out.shape != want_tokens.shape or not np.array_equal(out, want_tokens):
+            raise AssertionError(f"{label}: tokens {out.tolist()} differ from request 1's")
+        if grew != want:
+            raise AssertionError(f"{label}: launches {grew}, expected {want}")
+        return tl
+
+    def on_new_host(driver):
+        """One request on a host added for it, the other hosts held down."""
+        new = gw.cluster.add_host()
+        held = [h for h in gw.cluster.hosts if h.alive and h is not new]
+        for h in held:
+            h.kill()
+        try:
+            tl = serve(driver, f"{driver} on new host {new.host_id}")
+        finally:
+            for h in held:
+                h.revive()
+        c = gw.placement_summary()["hosts"][new.host_id]
+        path = "peer" if c["peer_fetches"] else "store"
+        log(f"{driver} on new host {new.host_id}: the {path} path (peer fetches "
+            f"{c['peer_fetches']}, {c['bytes_from_peer']} B; store fetches "
+            f"{c['store_fetches']}, {c['bytes_from_store']} B; partial restores "
+            f"{c['partial_restores']})")
+        return tl
+
+    gw.agent.handle = observed_handle
+    ops.reset_launch_counts()
+    try:
+        for driver in ALL_DRIVERS:
+            n = RETRACE_REQUESTS if driver.startswith("cold_jit") else TAXONOMY_REQUESTS
+            for r in range(n):
+                serve(driver, f"{driver} request {r + 1}")
+        on_new_host("unikernel")
+        tl = on_new_host("unikernel_stream")
+        if "restore_stream_head" not in tl.stage_s or "deserialize_program_bg" not in \
+                tl.stage_s or not 0.0 < tl.ttfr < tl.t_boot_wall:
+            raise AssertionError(f"the streamed first boot did not run the head program ahead "
+                                 f"of its tail: stages {list(tl.stage_s)}, TTFR {tl.ttfr}, "
+                                 f"t_boot_wall {tl.t_boot_wall}")
+    finally:
+        gw.agent.handle = handle
+    launches = ops.launch_counts()
+    log(f"phase 3e: launches {launches} | cold gateway residency {gw.residency_summary()} | "
+        f"per-host resident bytes (cold scaler) {gw.placement_summary()['per_host_resident_bytes']}")
+
+    # the incumbent: a warm gateway serving the same image
+    wgw = Gateway(n_hosts=2, slots_per_host=2, mode="warm", hedging=False,
+                  scheduler=SchedulerConfig(snapshot_tier_bytes=4 << 30),
+                  work_dir=gw.work_dir, device=dep.device)
+    wgw.deployments[name] = dep                 # phase 3's image, its stores shared
+    try:
+        before = ops.launch_counts()
+        miss = serve("warm", "warm gateway request 1", wgw)
+        hit = serve("warm", "warm gateway request 2", wgw)
+        if "pool_checkout" not in hit.stage_s:
+            raise AssertionError(f"the warm gateway's second request missed its pool: "
+                                 f"{list(hit.stage_s)}")
+        warm_res = wgw.placement_summary()["per_host_resident_bytes"]
+        cold_res = gw.placement_summary()["per_host_resident_bytes"]
+        log(f"warm gateway: request 1 {'hit' if 'pool_checkout' in miss.stage_s else 'miss'}, "
+            f"request 2 hit | target {wgw.scaler.target(name)} | per-host resident bytes: "
+            f"warm {warm_res}, cold {cold_res}")
+        if not sum(warm_res.values()) or any(cold_res.values()):
+            raise AssertionError("warm residency should be > 0 and cold residency 0")
+        t_idle = time.perf_counter()
+        while wgw.scaler.resident_nbytes(wgw.cluster) and time.perf_counter() - t_idle < 120:
+            time.sleep(0.1)
+        log(f"warm gateway: pools expired by the idle timeout after {time.perf_counter() - t_idle:.2f} "
+            f"s | residency {wgw.residency_summary()}")
+        after = ops.launch_counts()
+        launches = {k: launches[k] + after[k] - before[k] for k in launches}
+    finally:
+        wgw.shutdown()
+    threads = set(threading.enumerate())
+    gw.shutdown()
+    t_join = time.perf_counter()
+    while time.perf_counter() - t_join < 30:
+        alive = [t.name for t in threading.enumerate() if not t.daemon
+                 and t is not threading.main_thread()]
+        if not alive:
+            break
+        time.sleep(0.05)
+    log(f"gw.shutdown(): threads before {len(threads)}, non-daemon threads left {alive} | "
+        f"residency after flushing pools and donors {gw.residency_summary()}")
+    if alive:
+        raise AssertionError(f"gw.shutdown() left non-daemon threads alive: {alive}")
+    allocated1 = tensor_bytes(torch)
+    log(f"phase 3e: device memory allocated before {allocated0} B, after {allocated1} B "
+        f"(difference {allocated1 - allocated0} B, allowed {MEMORY_SLACK} B)")
+    if abs(allocated1 - allocated0) > MEMORY_SLACK:
+        raise AssertionError("phase 3e left device memory allocated")
+    return launches
 
 
 def register_jamba() -> None:
@@ -1230,15 +1409,17 @@ def main() -> int:
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         # ---- phase 3: the llama serve path, full width, through the Gateway
-        gw, dep, launches = gateway_path(torch, SPEC, work / "llama")
+        gw, dep, launches, first_tokens = gateway_path(torch, SPEC, work / "llama")
         # ---- phase 3b: the decode tier on the same deployment, same Gateway
         launches_3b = decode_tier(torch, gw, dep)
+        # ---- phase 3e: every driver on the same deployment, then warm mode
+        launches_3e = driver_taxonomy(torch, gw, dep, first_tokens)
         del gw, dep
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(work / "llama", ignore_errors=True)
 
-        # ---- phase 3c: the xlstm serve path, full width, 2 of 6 periods
+        # ---- phase 3c: the xlstm serve path, full width, 1 of 6 periods
         _, launches_3c = serve_path(
             torch, FunctionSpec(**XLSTM_SPEC), work / "xlstm", XLSTM_REQUESTS,
             lambda cfg, spec: {"flash_attention": 0, "decode_attention": 0,
@@ -1270,7 +1451,8 @@ def main() -> int:
     kernels = []
     for name, r in results.items():
         by_path = {"serve": launches[name], "decode_tier": launches_3b[name],
-                   "xlstm_serve": launches_3c[name], "jamba_serve": launches_3d[name]}
+                   "driver_taxonomy": launches_3e[name], "xlstm_serve": launches_3c[name],
+                   "jamba_serve": launches_3d[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],

@@ -1,7 +1,8 @@
 """Agent: per-host executor lifecycle management (port of ``repro.core.agent``).
 
-One request = select driver -> start executor -> run -> finish (exit), with
-Timeline stamps at each boundary and exact residency accounting on exit.
+One request = select driver -> start executor -> run -> finish (exit /
+repool), with Timeline stamps at each boundary and exact residency
+accounting on exit.
 With cold drivers "the lifecycle management functionality of the agent
 becomes unnecessary" (paper Sec IV-A) — visible here as the trivial finish
 path.
@@ -17,9 +18,15 @@ agent moves them to the deployment's device and brings the generated tokens
 back as a numpy array. ``handle_batch`` comes with the coalescer's bucket
 programs.
 
+A streamed boot (``unikernel_stream``) hands back an executor whose tail is
+still landing: the agent binds the request's Timeline to its readiness
+gates, so the background stages and the extended boot wall land in it.
+
 Invariants: a crashed executor never returns to a pool (it exits, so retries
 always get a FRESH one); every exited executor's residency is accounted
-exactly once.
+exactly once; shared donors (``fork-donor``, the ``process`` driver's
+executor) are never exited by a request's normal path — their residency is
+accounted when the gateway evicts them.
 """
 from __future__ import annotations
 
@@ -108,13 +115,19 @@ class Agent:
         driver = host.drivers[driver_name]
         tl.t_start_begin = self._now()
         ex = self._claim_or_start(driver, dep, tl, preboot)
+        gates = getattr(ex, "gates", None)
+        if gates is not None:
+            # streamed boot: the tail's background stage timings and bytes
+            # land in this request's Timeline once the restore completes
+            gates.bind_timeline(tl)
         try:
             host.check_alive()
         except Exception:
-            # the host died under a live executor: exit it so neither its
-            # device memory nor its residency leaks while the dispatcher
-            # re-routes
-            self._exit(ex)
+            # the host died under a live executor: exit it (unless it is a
+            # shared donor) so neither its device memory nor its residency
+            # leaks while the dispatcher re-routes
+            if ex.driver != "fork-donor":
+                self._exit(ex)
             raise
         tl.t_exec_begin = self._now()
         try:
@@ -126,8 +139,10 @@ class Agent:
             self._exit(ex)
             raise
         driver.finish(dep, ex)
-        # exited now — account exact residency
-        self.residency.add_residency(ex.nbytes, ex.resident_seconds, ex.busy_seconds)
+        if ex.params is None and ex.driver != "fork-donor":
+            # exited now (not pooled, not a resident donor) — account exact
+            # residency
+            self.residency.add_residency(ex.nbytes, ex.resident_seconds, ex.busy_seconds)
         host.check_alive()
         tl.t_done = self._now()
         self.recorder.add(label or f"{dep.name}:{driver_name}", tl)

@@ -1,7 +1,8 @@
 """Content-addressed chunk store + per-host chunk tier: dedup'd snapshot bytes.
 
-Copy of ``repro.core.blobstore`` without ``stream_restore``, which comes with
-the ``unikernel_stream`` driver.
+Copy of ``repro.core.blobstore``; ``stream_restore`` walks the port's own
+parameter trees (``repro_torch.pytree``) where the JAX module uses
+``jax.tree.leaves``.
 
 Once boots are staged and hosts keep tiered caches, the dominant remaining
 cold-start term is *moving weight bytes*: every host-tier
@@ -28,6 +29,9 @@ transfer, and caching:
                       arrays from resident + fetched chunks. Reports exactly
                       how many bytes moved (``bytes_fetched``) and how many
                       were already resident (``bytes_deduped``).
+* ``stream_restore`` — the same restore, delivering each leaf in the
+                      manifest's first-use order the moment it is assembled
+                      (the ``unikernel_stream`` driver's producer).
 
 Invariants:
 
@@ -53,6 +57,8 @@ import time
 from collections import OrderedDict
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+from repro_torch import pytree
 
 DEFAULT_CHUNK_BYTES = 1 << 20          # 1 MiB: ~60 chunks for the bench snapshot
 
@@ -629,5 +635,132 @@ def _delta_restore_once(store, index, key: str, cache,
                     and cache is not None:
                 cache.publish_snapshot(key)
     finally:
+        store.blobs.unpin(sizes)
+    return tree, stats
+
+
+# ------------------------------------------------------------ stream restore
+
+
+class RestoreAborted(RuntimeError):
+    """A streamed restore observed its boot's cancel and stopped early."""
+
+
+def stream_restore(store, key: str, cache=None,
+                   on_leaf: Optional[Callable[[int, str, Any], None]] = None,
+                   should_abort: Optional[Callable[[], bool]] = None
+                   ) -> Tuple[Any, DeltaStats]:
+    """``delta_restore`` that delivers leaves one at a time, in first-use order.
+
+    The streamed boot's producer: leaves are assembled in the manifest's
+    ``first_use_order`` (ordinal order when absent) and handed to ``on_leaf``
+    ``(ordinal, path, host_leaf)`` the moment each is complete, so the caller
+    can copy it to the device and open its readiness gate while later leaves
+    are still being fetched. Fetch policy per chunk: host tier (free) -> the
+    ONE upfront peer batch (peers serve batches, not a trickle) -> global
+    store on demand — a withdrawn peer or a partial peer answer falls back to
+    the store. ``should_abort`` is consulted before every leaf; a True raises
+    :class:`RestoreAborted` (the cancelled speculative boot's path).
+
+    Same pin + retry-once-on-FileNotFoundError contract as ``delta_restore``;
+    on retry, already-delivered leaves are delivered again (consumers treat
+    ``on_leaf`` as idempotent per ordinal).
+    """
+    tier: Optional[HostChunkTier] = getattr(cache, "snapshots", None)
+    if tier is not None and not isinstance(tier, HostChunkTier):
+        tier = None
+    for attempt in (0, 1):
+        index = store.read_index(key)
+        if index.get("format") != 2:
+            raise ValueError(f"snapshot {key} is not chunked (v2)")
+        try:
+            return _stream_restore_once(store, index, key, cache, tier, on_leaf, should_abort)
+        except FileNotFoundError:
+            if attempt:
+                raise
+            # the snapshot was overwritten between reading the index and
+            # pinning its chunks — re-read and go again with the new manifest
+
+
+def _stream_restore_once(store, index, key: str, cache, tier: Optional[HostChunkTier],
+                         on_leaf, should_abort) -> Tuple[Any, DeltaStats]:
+    from repro_torch.core.snapshot import _rebuild_structure   # snapshot imports this module
+
+    stats = DeltaStats()
+    stats.source = "stream"
+    stats.bytes_total = store.index_nbytes(index)
+    entries = index["leaves"]
+    order = store.leaf_order(index)
+
+    if tier is not None:
+        tree = tier.tree(key)
+        if tree is not None:
+            stats.source = "cached"
+            stats.bytes_deduped = stats.bytes_total
+            if on_leaf is not None:
+                leaves = pytree.leaves(tree)      # rebuilt trees flatten in ordinal order
+                for i in order:
+                    on_leaf(i, entries[i]["path"], leaves[i])
+            return tree, stats
+
+    sizes = manifest_chunk_sizes(index)
+    store.blobs.pin(sizes)
+    begin = getattr(cache, "begin_partial_snapshot", None)
+    if begin is not None:
+        begin(key, stats.bytes_total)
+    try:
+        all_cids = list(sizes)
+        missing = tier.missing(all_cids) if tier is not None else all_cids
+        fetched: Dict[str, bytes] = {}
+        if missing and cache is not None:
+            t0 = time.perf_counter()
+            peer = cache.fetch_chunks_from_peer(key, missing)
+            stats.t_peer_s = time.perf_counter() - t0 if peer else 0.0
+            stats.bytes_from_peer = sum(len(b) for b in peer.values())
+            # a lying peer chunk is dropped here; the on-demand store path
+            # below re-fetches it when its leaf comes up in stream order
+            _verify_peer_chunks(peer, stats, cache)
+            fetched.update(peer)
+        store_bytes = [0]
+
+        def chunk_bytes(cid: str) -> bytes:
+            data = fetched.get(cid)
+            if data is not None:
+                return data
+            data = tier.chunk(cid) if tier is not None else None
+            if data is None:            # peer didn't answer / tier evicted it
+                t0 = time.perf_counter()
+                data = store.blobs.get(cid)
+                stats.chunks_rehashed += 1      # verified inside get()
+                stats.t_store_s += time.perf_counter() - t0
+                store_bytes[0] += len(data)
+                fetched[cid] = data
+            return data
+
+        leaves: List[Any] = [None] * len(entries)
+        for i in order:
+            if should_abort is not None and should_abort():
+                raise RestoreAborted(key)
+            e = entries[i]
+            leaf = store._leaf_from_chunks(e, chunk_bytes)
+            leaves[i] = leaf
+            if on_leaf is not None:
+                on_leaf(i, e["path"], leaf)
+        if store_bytes[0] and cache is not None:
+            cache.account_store_chunks(store_bytes[0])
+        stats.bytes_from_store = store_bytes[0]
+        stats.bytes_fetched = stats.bytes_from_peer + stats.bytes_from_store
+        stats.bytes_deduped = stats.bytes_total - stats.bytes_fetched
+
+        tree = _rebuild_structure(index["treedef"], leaves)
+        if tier is not None:
+            chunks = {cid: chunk_bytes(cid) for cid in sizes}
+            if tier.register(key, chunks, stats.bytes_total, tree=tree) \
+                    and cache is not None:
+                cache.publish_snapshot(key)
+    finally:
+        end = getattr(cache, "end_partial_snapshot", None)
+        if end is not None:
+            end(key)
         store.blobs.unpin(sizes)
     return tree, stats

@@ -11,13 +11,24 @@ Every stage's duration lands in ``Timeline.stage_s[stage.name]`` and the
 combined wall time in ``Timeline.t_boot_wall``, so wall < sum of stages is
 the overlap win.
 
-The stages ported so far are the unikernel driver's: ``FetchProgram`` and
-``DeserializeProgram`` through the host's program tier, ``RestoreWeightsHost``
-(a delta restore through the host's chunk tier for v2 snapshots, mmap for
-v1), ``DevicePut`` and ``Finalize``. A stage that took a tier path records
-under the name of the path (``fetch_program_cached``, ``fetch_peer``,
-``restore_weights_cached``, ``restore_delta`` with ``fetch_chunks_peer`` /
-``fetch_chunks_store`` carved out of it).
+The stages are the JAX package's, under its names, so timelines compare:
+``FetchProgram`` and ``DeserializeProgram`` through the host's program tier,
+``RestoreWeightsHost`` (a delta restore through the host's chunk tier for v2
+snapshots, mmap for v1, the generic checkpoint's parse + cast for the
+cold_jit drivers), ``DevicePut`` and ``Finalize``; ``TraceCompile`` (a fresh
+``torch.export`` trace); the pool and donor stages ``AliasDonor``,
+``ReuseDonor``, ``PoolCheckout``, ``FetchParked``. A stage that took a tier
+path records under the name of the path (``fetch_program_cached``,
+``fetch_peer``, ``restore_weights_cached``, ``restore_delta`` with
+``fetch_chunks_peer`` / ``fetch_chunks_store`` carved out of it).
+
+Streamed boots (``FetchProgramHead``, ``StreamRestore`` /
+``FinalizeStream``, the ``unikernel_stream`` driver) relax the all-at-once
+join: the weights track opens per-leaf readiness gates as leaves land on the
+device (in the manifest's first-use order), and the JOIN stage may finalize a
+PARTIAL executor whose tail — remaining leaves, the tail and fused programs
+— completes on a background thread, patching the bound timelines
+(``restore_stream_tail_bg``, ``deserialize_program_bg``) when it settles.
 
 ``DevicePut`` is the port's counterpart of ``jax.device_put`` streaming: a
 read-ahead thread copies ~32 MB chunks of the (mmap'd) host leaves into
@@ -42,10 +53,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import pytree
-from repro_torch.core.blobstore import delta_restore
-from repro_torch.core.executor import Executor
+from repro_torch.core import blobstore
+from repro_torch.core.executor import Executor, ReadinessGates, SplitServe
 from repro_torch.core.metrics import Timeline, now
 from repro_torch.core.scheduler import ProgramArtifact
+from repro_torch.core.snapshot import _rebuild_structure, load_generic_host
 
 
 def spawn_future(fn: Callable[[], Any], name: str) -> Future:
@@ -91,6 +103,7 @@ class BootContext:
         self.program_entry: Any = None
         self.host_params: Any = None
         self.params: Any = None
+        self.shared_weights: bool = False       # fork: weights aliased from a donor
         self.executor: Optional[Executor] = None
         # delta-restore accounting: bytes that moved for this boot vs bytes
         # already resident in the host chunk tier, and the integrity trail
@@ -104,6 +117,10 @@ class BootContext:
         # request deadline (duck-typed: ``expired()`` / ``check(what)``);
         # stages and chunk loops treat expiry like a cancel
         self.deadline = None
+        # streamed-boot plumbing (set by StreamRestore / FetchProgramHead)
+        self.gates: Optional[ReadinessGates] = None
+        self.stream: Any = None                         # _StreamState
+        self.split_program: bool = False                # head sub-program booted
 
 
 class Stage:
@@ -142,12 +159,19 @@ class FetchProgram(Stage):
     name = "fetch_program"
     track = TRACK_PROGRAM
 
+    # which artifact to fetch — FetchProgramHead points these at the head
+    def _key(self, ctx: BootContext) -> str:
+        return ctx.dep.program_key()
+
+    def _payload(self, ctx: BootContext) -> bytes:
+        return ctx.dep.fetch_program_payload()
+
     def run(self, ctx: BootContext) -> None:
         cache = getattr(ctx.host, "cache", None)
         if cache is None:
-            ctx.program_payload = ctx.dep.fetch_program_payload()
+            ctx.program_payload = self._payload(ctx)
             return
-        key = ctx.dep.program_key()
+        key = self._key(ctx)
         entry = cache.get("program", key)
         if entry is not None:
             self.name = "fetch_program_cached"
@@ -156,13 +180,49 @@ class FetchProgram(Stage):
             if entry is not None:
                 self.name = "fetch_peer"
             else:
-                entry = ProgramArtifact(ctx.dep.fetch_program_payload())
+                entry = ProgramArtifact(self._payload(ctx))
                 cache.fetch_from_store("program", key, entry, entry.nbytes)
         if entry.loaded is not None:           # already loaded on this host
             ctx.program = entry.loaded
         else:
             ctx.program_payload = entry.payload
             ctx.program_entry = entry
+
+
+class FetchProgramHead(FetchProgram):
+    """Streamed-boot program fetch: the *head* sub-program when the
+    deployment published a verified split, else exactly ``FetchProgram``.
+
+    Sets ``ctx.split_program`` so FinalizeStream wraps the head in a
+    ``SplitServe`` and acquires the tail and fused programs in the
+    background. Any failure on the split path falls back to the fused
+    program — the split is a latency optimisation, never a correctness
+    dependency (the records still show which ran: ``FinalizeStream`` stamps
+    ``deserialize_program_bg`` only after a head boot).
+    """
+
+    def __init__(self) -> None:
+        self._split = False
+
+    def _key(self, ctx: BootContext) -> str:
+        return ctx.dep.head_program_key() if self._split else super()._key(ctx)
+
+    def _payload(self, ctx: BootContext) -> bytes:
+        return ctx.dep.fetch_head_payload() if self._split else super()._payload(ctx)
+
+    def run(self, ctx: BootContext) -> None:
+        self._split = bool(getattr(ctx.dep, "split_ok", False))
+        if not self._split:
+            super().run(ctx)
+            return
+        try:
+            super().run(ctx)
+        except Exception:  # noqa: BLE001 - fall back to the fused program
+            self._split = False
+            ctx.program = ctx.program_payload = ctx.program_entry = None
+            super().run(ctx)
+            return
+        ctx.split_program = True
 
 
 class DeserializeProgram(Stage):
@@ -184,9 +244,43 @@ class DeserializeProgram(Stage):
             ctx.program_entry = None
 
 
+class TraceCompile(Stage):
+    """The Docker-stack tier: re-trace the serve program at boot.
+
+    The JAX package re-traces and compiles with a fresh ``jax.jit``. The
+    port's image program *is* a ``torch.export`` trace, so this stage is a
+    fresh ``torch.export.export`` of a new ``ServeProgram`` at the request
+    shape, then ``slim`` and ``.module()`` — the same work deploy does. It
+    traces on ``FakeTensor``s of the deployment's device, not on ``meta``
+    tensors: export bakes the device of tensors ``forward`` allocates (the
+    KV cache) into the graph, and fakes carry the real device without
+    allocating the weights. No code is compiled, so the disk cache of
+    :func:`repro_torch.core.compile_cache.enable_inductor_disk_cache` has
+    nothing to absorb here yet (ROADMAP A3b).
+    """
+
+    name = "trace_compile"
+    track = TRACK_PROGRAM
+
+    def run(self, ctx: BootContext) -> None:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from repro_torch.core.compile_cache import slim
+        dep = ctx.dep
+        with FakeTensorMode():
+            params = pytree.tree_map(
+                lambda s: torch.empty(s.shape, dtype=s.dtype, device=dep.device),
+                dep.abstract_params())
+            tokens = torch.empty((dep.base_rows, dep.spec.prompt_len), dtype=torch.int32,
+                                 device=dep.device)
+        fresh = type(dep.serve_fn)(dep.model, dep.spec)     # a new module: a new trace
+        ctx.program = slim(torch.export.export(fresh, (params, tokens))).module()
+
+
 class RestoreWeightsHost(Stage):
     """Materialize host-side weights: a delta restore through the host chunk
-    tier (v2 snapshots) or the snapshot's mmap'd files (v1).
+    tier (v2 snapshots), the snapshot's mmap'd files (v1), or the generic
+    checkpoint's full parse + cast (``source="generic"``, the cold_jit path).
 
     A fully memoized tree records as ``restore_weights_cached``; otherwise,
     with a host tier, the stage lands as ``restore_delta`` with
@@ -198,19 +292,21 @@ class RestoreWeightsHost(Stage):
     track = TRACK_WEIGHTS
 
     def __init__(self, source: str = "snapshot") -> None:
-        if source != "snapshot":
-            raise NotImplementedError(
-                f"weights source {source!r} not yet ported (generic checkpoints "
-                "come with the cold_jit drivers)")
+        if source not in ("snapshot", "generic"):
+            raise ValueError(f"unknown weights source {source!r}")
+        self.source = source
 
     def run(self, ctx: BootContext) -> None:
         dep = ctx.dep
+        if self.source == "generic":
+            ctx.host_params = load_generic_host(dep.generic_ckpt, dep.abstract_params())
+            return
         key = dep.image.key
         if not (dep.snapshots.blobs is not None and dep.snapshots.is_chunked(key)):
             ctx.host_params = dep.snapshots.load_host(key)
             return
         cache = getattr(ctx.host, "cache", None)
-        tree, stats = delta_restore(dep.snapshots, key, cache)
+        tree, stats = blobstore.delta_restore(dep.snapshots, key, cache)
         if stats.source == "cached":
             self.name = "restore_weights_cached"
         elif cache is not None:
@@ -239,6 +335,66 @@ class DevicePut(Stage):
         ctx.host_params = None
 
 
+class AliasDonor(Stage):
+    """COW-clone path: alias the donor's program + weight tensors (no copy)."""
+
+    name = "alias_donor"
+    track = TRACK_WEIGHTS
+
+    def __init__(self, donor: Executor) -> None:
+        self.donor = donor
+
+    def run(self, ctx: BootContext) -> None:
+        ctx.program = self.donor.program
+        ctx.params = self.donor.params
+        ctx.shared_weights = True
+
+
+class ReuseDonor(Stage):
+    """Dispatch onto the resident donor itself — the platform-overhead floor."""
+
+    name = "reuse_donor"
+    track = TRACK_JOIN
+
+    def __init__(self, donor: Executor) -> None:
+        self.donor = donor
+
+    def run(self, ctx: BootContext) -> None:
+        ctx.executor = self.donor
+
+
+class PoolCheckout(Stage):
+    """Warm-pool hit: the executor was already checked out under the pool lock."""
+
+    name = "pool_checkout"
+    track = TRACK_JOIN
+
+    def __init__(self, ex: Executor) -> None:
+        self.ex = ex
+
+    def run(self, ctx: BootContext) -> None:
+        ctx.executor = self.ex
+
+
+class FetchParked(Stage):
+    """Paused-container path: program + host weights parked in RAM at pause.
+
+    Single-track on purpose: both artifacts are already in memory, so there
+    is nothing to overlap — DevicePut (same track) consumes host_params next.
+    """
+
+    name = "fetch_parked"
+    track = TRACK_WEIGHTS
+
+    def __init__(self, program: Callable, host: Any) -> None:
+        self.program = program
+        self.host = host
+
+    def run(self, ctx: BootContext) -> None:
+        ctx.program = self.program
+        ctx.host_params = self.host
+
+
 class Finalize(Stage):
     """Join point: assemble the Executor from the tracks' outputs."""
 
@@ -249,7 +405,234 @@ class Finalize(Stage):
         if ctx.executor is not None:
             return
         ctx.executor = Executor(ctx.dep.image.key, ctx.driver_name, ctx.program,
-                                ctx.params, ctx.dep.device)
+                                ctx.params, ctx.dep.device, shared_weights=ctx.shared_weights)
+
+
+# ------------------------------------------------------------ streamed boot
+
+
+class _StreamState:
+    """Weights-stream handoff between StreamRestore and FinalizeStream."""
+
+    def __init__(self) -> None:
+        self.done = threading.Event()
+        self.abort = threading.Event()         # dispose: stop a failed boot's stream
+        self.error: Optional[BaseException] = None
+        self.device_tree: Any = None
+        self.bytes_fetched = 0
+        self.bytes_deduped = 0
+        self.chunks_rehashed = 0
+        self.chunks_refetched = 0
+        self.bytes_recorded = False            # True once ctx took the byte counts
+
+
+def _leaf_to_device(leaf: torch.Tensor, device: torch.device,
+                    stream: Optional["torch.cuda.Stream"]) -> torch.Tensor:
+    """A copy of ``leaf`` on ``device`` whose copy has COMPLETED on return.
+
+    On CUDA the copy runs on ``stream`` (the restore's side stream), ordered
+    after the current stream's work (the allocator may hand back memory that
+    work last used), and the host waits on an event recorded after it — a
+    readiness gate opened after this call never exposes a copy in flight.
+    """
+    out = torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
+    if stream is None:
+        return out.copy_(leaf)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        out.copy_(leaf, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    done.synchronize()
+    return out
+
+
+class StreamRestore(Stage):
+    """Weights track of a streamed boot: restore + copy leaves to the device
+    in first-use order on a background thread, opening a readiness gate per
+    leaf once its copy has completed.
+
+    The stage returns once the deployment's *head* leaves are resident (the
+    head sub-program's read set — every leaf for the real split, a subset for
+    synthetic programs); the remaining leaves keep streaming on the
+    ``bootengine-stream`` thread and FinalizeStream's completion thread
+    accounts them as ``restore_stream_tail_bg``. Both formats: v2 chunked
+    snapshots through :func:`repro_torch.core.blobstore.stream_restore`
+    (tier -> peer batch -> store), v1 snapshots through
+    ``SnapshotStore.iter_restore``.
+    """
+
+    name = "restore_stream_head"
+    track = TRACK_WEIGHTS
+
+    def run(self, ctx: BootContext) -> None:
+        dep = ctx.dep
+        key = dep.image.key
+        index = dep.snapshots.read_index(key)
+        entries = index["leaves"]
+        paths = [e["path"] for e in entries]
+        path_set = set(paths)
+        head = [p for p in getattr(dep, "head_leaves", ()) if p in path_set] or list(paths)
+        gates = ReadinessGates(paths, head)
+        ctx.gates = gates
+        state = _StreamState()
+        ctx.stream = state
+        cancel, deadline = ctx.cancel, ctx.deadline
+        chunked = dep.snapshots.blobs is not None and dep.snapshots.is_chunked(key)
+        cache = getattr(ctx.host, "cache", None)
+        device = torch.device(dep.device)
+        side = torch.cuda.Stream(device) if device.type == "cuda" else None
+        device_leaves: List[Any] = [None] * len(entries)
+
+        def should_abort() -> bool:
+            return state.abort.is_set() or (cancel is not None and cancel.is_set()) or \
+                (deadline is not None and deadline.expired())
+
+        def on_leaf(i: int, path: str, leaf) -> None:
+            device_leaves[i] = _leaf_to_device(leaf, device, side)
+            gates.mark_ready(path)
+
+        def worker() -> None:
+            try:
+                if chunked:
+                    _tree, stats = blobstore.stream_restore(dep.snapshots, key, cache,
+                                                            on_leaf=on_leaf,
+                                                            should_abort=should_abort)
+                    state.bytes_fetched = stats.bytes_fetched
+                    state.bytes_deduped = stats.bytes_deduped
+                    state.chunks_rehashed = stats.chunks_rehashed
+                    state.chunks_refetched = stats.chunks_refetched
+                else:
+                    for i, path, leaf in dep.snapshots.iter_restore(key):
+                        if should_abort():
+                            raise blobstore.RestoreAborted(key)
+                        on_leaf(i, path, leaf)
+                state.device_tree = _rebuild_structure(index["treedef"], device_leaves)
+            except BaseException as e:  # noqa: BLE001 - relayed via the gates
+                state.error = e
+                gates.fail(e)
+            finally:
+                state.done.set()
+
+        threading.Thread(target=worker, daemon=True, name="bootengine-stream").start()
+
+        if len(head) == len(paths):
+            # the head needs every leaf (the real split): nothing to overlap
+            # with execution on the weights side — wait it out here so the
+            # stage time is the critical path
+            state.done.wait()
+        else:
+            try:
+                gates.wait_leaves(head)
+            except Exception:  # noqa: BLE001 - surface the stream's own error below
+                state.done.wait()
+        if state.error is not None:
+            if isinstance(state.error, (blobstore.RestoreAborted, BootCancelled)):
+                if deadline is not None and deadline.expired():
+                    from repro_torch.core.resilience import DeadlineExceeded
+                    raise DeadlineExceeded(f"stream deadline passed: {key}")
+                raise BootCancelled(f"stream cancelled: {key}")
+            raise state.error
+        if state.done.is_set():
+            ctx.bytes_fetched += state.bytes_fetched
+            ctx.bytes_deduped += state.bytes_deduped
+            ctx.chunks_rehashed += state.chunks_rehashed
+            ctx.chunks_refetched += state.chunks_refetched
+            state.bytes_recorded = True
+
+
+def _acquire_program(cache, key: str, payload_fn: Callable[[], bytes]) -> Callable:
+    """Load a program through the host program tier when one is attached (a
+    tier hit may already be loaded; a miss parks the loaded program back on
+    the tier entry for the next boot), else deserialize the payload."""
+    from repro_torch.core.compile_cache import CompileCache
+    if cache is not None:
+        entry = cache.get("program", key)
+        if entry is None:
+            entry = cache.fetch_from_peer("program", key)
+        if entry is None:
+            entry = ProgramArtifact(payload_fn())
+            cache.fetch_from_store("program", key, entry, entry.nbytes)
+        if entry.loaded is None:
+            entry.loaded = CompileCache.deserialize_program(entry.payload)
+        return entry.loaded
+    return CompileCache.deserialize_program(payload_fn())
+
+
+class FinalizeStream(Stage):
+    """Readiness-gated join: finalize a (possibly PARTIAL) streamed executor.
+
+    If the stream already delivered everything and the program track booted
+    the fused program, this is plain Finalize. Otherwise the executor starts
+    PARTIAL behind its gates and a ``bootengine-stream-complete`` thread
+    finishes the boot: wait out the weight tail, acquire the tail
+    sub-program (opening the SplitServe's tail gate) and the fused program
+    (so a fully restored executor runs the fused program — split serving is
+    only the cold-start bridge), swap them in via ``_complete_restore``, and
+    patch every bound timeline with the background stages and the extended
+    wall.
+    """
+
+    name = "finalize"
+    track = TRACK_JOIN
+
+    def run(self, ctx: BootContext) -> None:
+        if ctx.executor is not None:
+            return
+        dep = ctx.dep
+        gates, state = ctx.gates, ctx.stream
+        if gates is None or state is None:
+            raise RuntimeError("FinalizeStream requires StreamRestore in the plan")
+        device = dep.device
+        weights_done = state.done.is_set() and state.error is None
+        params = state.device_tree if weights_done else None
+        split = ctx.split_program
+        program: Callable = SplitServe(ctx.program, gates) if split else ctx.program
+        if weights_done and not split:
+            gates.mark_complete()              # nothing left: READY at once
+            ctx.executor = Executor(dep.image.key, ctx.driver_name, program, params,
+                                    device, gates=gates)
+            return
+        ex = Executor(dep.image.key, ctx.driver_name, program, params, device, gates=gates)
+        ctx.executor = ex
+        host_cache = getattr(ctx.host, "cache", None)
+
+        def complete() -> None:
+            t0 = now()
+            try:
+                state.done.wait()
+                if state.error is not None:
+                    raise state.error
+                stage_extra: Dict[str, float] = {}
+                if not weights_done:
+                    stage_extra["restore_stream_tail_bg"] = now() - t0
+                new_params = None if weights_done else state.device_tree
+                fused = None
+                if split:
+                    t1 = now()
+                    tail = _acquire_program(
+                        host_cache, dep.tail_program_key(),
+                        lambda: dep.cache.read_program_bytes(dep.tail_program_key()))
+                    gates.set_tail_program(tail)
+                    # "fully restored" means the fused program is resident
+                    fused = _acquire_program(host_cache, dep.program_key(),
+                                             dep.fetch_program_payload)
+                    stage_extra["deserialize_program_bg"] = now() - t1
+                ex._complete_restore(params=new_params, program=fused)
+                gates.mark_complete()
+                bf = bd = cr = cf = 0
+                if not state.bytes_recorded:
+                    bf, bd = state.bytes_fetched, state.bytes_deduped
+                    cr, cf = state.chunks_rehashed, state.chunks_refetched
+                    state.bytes_recorded = True
+                gates.finish_timelines(stage_extra, now() - t0, bytes_fetched=bf,
+                                       bytes_deduped=bd, chunks_rehashed=cr,
+                                       chunks_refetched=cf)
+            except BaseException as e:  # noqa: BLE001 - relayed via the gates
+                gates.fail(e)
+
+        threading.Thread(target=complete, daemon=True,
+                         name="bootengine-stream-complete").start()
 
 
 # ----------------------------------------------------------- streamed put
@@ -577,8 +960,12 @@ class BootEngine:
 
     @staticmethod
     def _dispose(ctx: BootContext) -> None:
-        """Drop everything a failed/cancelled boot materialized."""
-        if ctx.executor is not None:
+        """Drop everything a failed/cancelled boot materialized (never a
+        donor's executor or weights)."""
+        if ctx.stream is not None:
+            ctx.stream.abort.set()             # stop an in-flight weight stream
+        if ctx.executor is not None and not ctx.shared_weights \
+                and ctx.executor.driver not in ("process", "fork-donor"):
             ctx.executor.exit()
         ctx.program = ctx.params = ctx.host_params = ctx.program_payload = None
 

@@ -1,7 +1,7 @@
 """Virtual multi-host cluster: placement targets + failure injection.
 
 Port of ``repro.core.cluster``. Each host's driver table is the port's
-``make_drivers`` (``unikernel`` only so far).
+``make_drivers``: all eight drivers of ``ALL_DRIVERS``.
 
 Each Host models one machine: a bounded slot pool (the paper's 24-core server that
 degrades past 20 parallel starts), its own driver instances (so warm pools and fork

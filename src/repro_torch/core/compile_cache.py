@@ -5,7 +5,9 @@ Port of ``repro.core.compile_cache``. The stored program is a ``torch.export``
 shape-specialised, weight-free (the parameters are an input, as in
 ``serve(params, tokens)``), and loaded at boot without re-tracing user code.
 It is the closest counterpart of the JAX package's serialized AOT executable.
-Compiling it ahead of time with AOTInductor is later work.
+Compiling it ahead of time with AOTInductor is later work; until then the
+disk-cache pair (``enable_inductor_disk_cache``, the counterpart of
+``enable_xla_disk_cache``) has no compile step of the port to cache.
 
 Layout on disk (content-addressed by FunctionSpec.cache_key):
 
@@ -23,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import io
 import os
+import shutil
 import threading
 import typing
 from pathlib import Path
@@ -33,8 +36,8 @@ import torch
 from repro_torch.core.artifact import ImageManifest
 from repro_torch.kernels import ops  # noqa: F401  (registers the custom ops)
 
-# Derived keys of the sub-programs later slices publish beside the fused
-# program ('#' never appears in a FunctionSpec.cache_key): the streamed boot's
+# Derived keys of the sub-programs published beside the fused program ('#'
+# never appears in a FunctionSpec.cache_key): the streamed boot's
 # head (prefill + first token) and tail (the decode loop), and the
 # continuous-batching decode bundle's admit and step programs.
 HEAD_SUFFIX = "#head"
@@ -160,4 +163,44 @@ class CompileCache:
 
     def load_manifest(self, key: str) -> ImageManifest:
         return ImageManifest.from_json(self.manifest_path(key).read_text())
+
+    def evict(self, key: str) -> None:
+        shutil.rmtree(self._dir(key), ignore_errors=True)
+
+
+_DISK_CACHE_ENV = ("TORCHINDUCTOR_CACHE_DIR", "TORCHINDUCTOR_FX_GRAPH_CACHE",
+                   "TORCHINDUCTOR_AUTOGRAD_CACHE")
+_saved_env: dict = {}
+
+
+def enable_inductor_disk_cache(path: str | Path) -> None:
+    """Point PyTorch's persistent compile caches at ``path`` (the gVisor-tier
+    cold path, the counterpart of the JAX package's XLA disk cache): the
+    Inductor FX-graph and kernel caches, read by ``torch.compile`` and
+    AOTInductor in this process.
+
+    What it caches in the port today: nothing on the serve path. The
+    ``cold_jit`` drivers' ``TraceCompile`` is a fresh ``torch.export`` trace
+    and compiles no code (the programs run through ``ExportedProgram
+    .module()``), so ``cold_jit_cached`` boots like ``cold_jit`` until the
+    programs are compiled with AOTInductor (ROADMAP A3b), whose compile step
+    this cache then absorbs. Undo with :func:`disable_inductor_disk_cache`.
+    """
+    Path(path).mkdir(parents=True, exist_ok=True)
+    for name in _DISK_CACHE_ENV:
+        _saved_env.setdefault(name, os.environ.get(name))
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = str(path)
+    os.environ["TORCHINDUCTOR_FX_GRAPH_CACHE"] = "1"
+    os.environ["TORCHINDUCTOR_AUTOGRAD_CACHE"] = "1"
+
+
+def disable_inductor_disk_cache() -> None:
+    """Restore the compile-cache settings from before
+    :func:`enable_inductor_disk_cache`."""
+    for name, value in _saved_env.items():
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
+    _saved_env.clear()
 

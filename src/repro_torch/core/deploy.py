@@ -9,33 +9,49 @@
      accepted only if the loaded program gives the eager program's tokens,
      and deploy raises otherwise (the JAX package's in-process fallback for
      XLA:CPU's AOT loader has no counterpart here),
-  4. write the weight snapshot (v2 chunks when the store has a blob store,
-     as the Gateway's does; v1 files otherwise) and the ImageManifest.
+  4. for streamed boots, export the head/tail split of the same program
+     (``HeadProgram``: prefill + the first token; ``TailProgram``: the decode
+     steps), save both under their derived keys, load them back, and accept
+     the split (``split_ok``) only if head + tail give the fused program's
+     tokens bit for bit — otherwise the keys are evicted and the streamed
+     driver boots the fused program,
+  5. walk the exported graph once for the leaves' first-use order
+     (:func:`first_use_order`) and write the weight snapshot with it (v2
+     chunks when the store has a blob store, as the Gateway's does; v1 files
+     otherwise), then the ImageManifest.
 
 ``Deployment.ensure_decode`` builds the continuous-batching decode bundle
 (the admit and step programs of :mod:`repro_torch.core.decode`) once per
 deployment, under the same export -> save -> load -> verify rule.
+``Deployment.ensure_generic`` writes the generic checkpoint of the cold_jit
+drivers once per deployment, when the first such boot plans (the JAX package
+writes it in ``deploy``; at jamba's size it is a 65 GB float32 file, so the
+port writes it only for a deployment that is booted that way).
 
-Later slices add the head/tail split, the first-use order, shape buckets
-and the generic checkpoint.
+Shape buckets (the coalescer's programs) come with the batching slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import operator
 import threading
-from typing import Callable, Dict, Optional
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.utils._pytree as torch_pytree
 from torch import nn
 
 from repro_torch.configs import get_config
 from repro_torch.core.artifact import ExecutorImage, FunctionSpec, ImageManifest
 from repro_torch.core.boot import streamed_device_put
-from repro_torch.core.compile_cache import CompileCache, decode_admit_key, decode_step_key, slim
+from repro_torch.core.compile_cache import (
+    CompileCache, decode_admit_key, decode_step_key, head_key, slim, tail_key,
+)
 from repro_torch.core.executor import synchronize
 from repro_torch.core.metrics import now
-from repro_torch.core.snapshot import SnapshotStore
+from repro_torch.core.snapshot import SnapshotStore, save_generic_checkpoint
 from repro_torch.models import build_model
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import split_cache, split_layers
@@ -70,6 +86,147 @@ class ServeProgram(nn.Module):
 
 def make_serve_fn(model: Model, spec: FunctionSpec) -> ServeProgram:
     return ServeProgram(model, spec)
+
+
+class HeadProgram(nn.Module):
+    """Streamed-boot head: prefill + the FIRST response token.
+
+    ``forward(params, tokens) -> (tok0 [B, 1] int32, logits [B, V], cache)``,
+    ``cache`` the prefill's decode state (the stacked tensors, padded to the
+    fused program's capacity). The moment its output is ready the response
+    has begun — the TTFR stamp; the logits and cache let the tail resume the
+    fused computation exactly.
+    """
+
+    def __init__(self, model: Model, spec: FunctionSpec) -> None:
+        super().__init__()
+        self.model = model
+        self.capacity = spec.prompt_len + spec.decode_steps
+
+    def forward(self, params, tokens):
+        params = {**params, "stack": split_layers(params["stack"])}
+        logits, cache = self.model.prefill(params, {"tokens": tokens}, capacity=self.capacity)
+        tok0 = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        return tok0, logits, cache["inner"]
+
+
+class TailProgram(nn.Module):
+    """Streamed-boot tail: the decode steps of ``ServeProgram``, verbatim.
+
+    ``forward(params, logits, cache) -> tokens [B, K] int32``. Takes the
+    head's prefill logits and cache and re-derives token 0 from the logits as
+    the fused program does, so head + tail give its tokens bit for bit
+    (checked at deploy). The cache is cloned once at the top: the decode
+    steps write into that copy in place, as the fused program writes into its
+    own intermediate, so the exported graph keeps in-place writes (no
+    functional cache copy per step) and the caller's tensors are unchanged.
+    """
+
+    def __init__(self, model: Model, spec: FunctionSpec) -> None:
+        super().__init__()
+        self.model = model
+        self.decode_steps = spec.decode_steps
+        self.prompt_len = spec.prompt_len
+
+    def forward(self, params, logits, cache):
+        params = {**params, "stack": split_layers(params["stack"])}
+        inner = pytree.tree_map(torch.clone, cache)
+        cache = {"inner": split_cache(self.model.cfg, inner), "pos": self.prompt_len}
+        toks = []
+        for _ in range(self.decode_steps):
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            logits, cache = self.model.decode(params, cache, tok)
+            toks.append(tok[:, 0])
+        return torch.stack(toks, dim=1)                    # [B, decode_steps]
+
+
+def make_head_fn(model: Model, spec: FunctionSpec) -> HeadProgram:
+    return HeadProgram(model, spec)
+
+
+def make_tail_fn(model: Model, spec: FunctionSpec) -> TailProgram:
+    return TailProgram(model, spec)
+
+
+# Graph nodes that only re-view their input: a leaf flows through them
+# without being read, so the walk follows them to the first node that
+# computes with the leaf.
+_VIEW_OPS = {
+    operator.getitem, torch.ops.aten.alias.default, torch.ops.aten.detach.default,
+    torch.ops.aten.view.default, torch.ops.aten.reshape.default,
+    torch.ops.aten._unsafe_view.default, torch.ops.aten.unbind.int,
+    torch.ops.aten.select.int, torch.ops.aten.slice.Tensor, torch.ops.aten.t.default,
+    torch.ops.aten.transpose.int, torch.ops.aten.permute.default,
+    torch.ops.aten.expand.default, torch.ops.aten.squeeze.dim,
+    torch.ops.aten.unsqueeze.default,
+}
+
+
+def _keystr(path) -> str:
+    """A torch pytree key path as JAX's ``keystr`` (``['embed']['tok']``)."""
+    out = []
+    for k in path:
+        if isinstance(k, torch_pytree.MappingKey):
+            out.append(f"[{k.key!r}]")
+        elif isinstance(k, torch_pytree.SequenceKey):
+            out.append(f"[{k.idx}]")
+        else:
+            raise TypeError(f"unexpected key in a parameter path: {k!r}")
+    return "".join(out)
+
+
+def first_use_order(exported: torch.export.ExportedProgram) -> List[str]:
+    """Parameter leaf paths of ``exported`` (a program whose first input is
+    the parameter tree) in the order execution first computes with each.
+
+    A deploy-time pass over the exported graph — no trace, no execution. The
+    graph's node list is a topological order that tracks trace order, so the
+    first node that consumes a leaf gives the order execution first needs it:
+    embedding and early layers before late layers. ``ServeProgram`` unbinds
+    every stacked ``[L, ...]`` leaf at its top, so view-like nodes (unbind,
+    select, getitem, view, reshape, slice, ...) do not count as a use: the
+    walk follows a leaf through them to the first node that computes with
+    it. Placeholders map to leaf paths through torch's own input spec (torch
+    flattens dicts in insertion order, the snapshot in JAX's sorted order).
+    Leaves no node computes with are appended in JAX's flattening order, so
+    the result is always a permutation of every leaf path.
+    """
+    in_spec = exported.call_spec.in_spec
+    flat = torch_pytree.tree_flatten_with_path(
+        torch_pytree.tree_unflatten(list(range(in_spec.num_leaves)), in_spec))[0]
+    # (args, kwargs) -> args[0] is the parameter tree
+    leaf_path = {i: _keystr(path[2:]) for path, i in flat
+                 if len(path) > 2 and path[:2] == (torch_pytree.SequenceKey(0),
+                                                   torch_pytree.SequenceKey(0))}
+    user = [s.arg.name for s in exported.graph_signature.input_specs
+            if s.kind == torch.export.graph_signature.InputKind.USER_INPUT]
+    alias: Dict[str, str] = {name: leaf_path[i] for i, name in enumerate(user)
+                             if i in leaf_path}
+    seen: List[str] = []
+    seen_set: set = set()
+    for node in exported.graph.nodes:
+        if node.op != "call_function":
+            continue
+        inputs = [a for a in node.all_input_nodes if a.name in alias]
+        if not inputs:
+            continue
+        if node.target in _VIEW_OPS and len(inputs) == 1:
+            alias[node.name] = alias[inputs[0].name]
+            continue
+        for a in inputs:
+            path = alias[a.name]
+            if path not in seen_set:
+                seen_set.add(path)
+                seen.append(path)
+    all_paths = sorted(leaf_path.values(), key=_jax_order(leaf_path.values()))
+    return seen + [p for p in all_paths if p not in seen_set]
+
+
+def _jax_order(paths):
+    """Sort key putting ``keystr`` paths in JAX's flattening order."""
+    def parts(p: str):
+        return [int(k) if k.isdigit() else k.strip("'") for k in p[1:-1].split("][")]
+    return lambda p: [(isinstance(k, str), k) for k in parts(p)]
 
 
 class AdmitProgram(nn.Module):
@@ -153,14 +310,35 @@ class Deployment:
     snapshots: SnapshotStore
     device: torch.device
     build_seconds: float
+    # where the cold_jit drivers' generic checkpoint lives; written on first
+    # use by ensure_generic
+    generic_ckpt: str = ""
     build_s: Dict[str, float] = dataclasses.field(default_factory=dict)  # seconds by stage
+    # streamed-boot metadata (deploy-time graph walk / split build):
+    first_use_order: List[str] = dataclasses.field(default_factory=list)
+    head_leaves: List[str] = dataclasses.field(default_factory=list)
+    split_ok: bool = False         # head/tail sub-programs published and verified
+                                   # bit-identical to the fused program
     _decode_lock: threading.Lock = dataclasses.field(default_factory=threading.Lock,
                                                      repr=False)
     _decode_bundle: Optional[DecodeBundle] = dataclasses.field(default=None, repr=False)
+    _generic_lock: threading.Lock = dataclasses.field(default_factory=threading.Lock,
+                                                      repr=False)
 
     @property
     def name(self) -> str:
         return self.spec.name
+
+    @property
+    def base_rows(self) -> int:
+        """Token rows of the request shape (the deploy-time program's)."""
+        return self.spec.batch_size
+
+    def abstract_params(self) -> Any:
+        """The parameter tree's shapes and dtypes (:class:`ParamSpec`
+        leaves): the template a generic checkpoint is cast back to and a
+        re-trace runs on."""
+        return self.model.param_specs()
 
     def program_key(self) -> str:
         """Registry/cache key of the program artifact."""
@@ -173,6 +351,31 @@ class Deployment:
     def fetch_program_payload(self) -> bytes:
         """Serialized-program bytes for the boot pipeline's FetchProgram stage."""
         return self.cache.read_program_bytes(self.program_key())
+
+    def head_program_key(self) -> str:
+        return head_key(self.image.key)
+
+    def tail_program_key(self) -> str:
+        return tail_key(self.image.key)
+
+    def fetch_head_payload(self) -> Optional[bytes]:
+        """Serialized head sub-program bytes, or None when no verified split
+        exists (the streamed boot then boots the fused program)."""
+        if not self.split_ok:
+            return None
+        return self.cache.read_program_bytes(self.head_program_key())
+
+    def ensure_generic(self) -> str:
+        """Write the generic checkpoint of this deployment's snapshot, once,
+        and return its path (``generic_ckpt``). The cold_jit drivers call it
+        when they plan a boot, as the paused driver parks its weights on
+        first use; the file equals, array for array, the one the JAX
+        package's ``deploy`` writes for the same parameters."""
+        with self._generic_lock:
+            if not Path(self.generic_ckpt).exists():
+                save_generic_checkpoint(self.generic_ckpt,
+                                        self.snapshots.iter_host_leaves(self.image.key))
+            return self.generic_ckpt
 
     def ensure_decode(self, slots: int, page_size: int) -> DecodeBundle:
         """Build, save and load the continuous-batching decode bundle.
@@ -264,11 +467,38 @@ class Deployment:
                             (self.spec.batch_size, self.spec.prompt_len), dtype=np.int32)
 
 
+def _build_split(spec: FunctionSpec, model: Model, cache: CompileCache, key: str,
+                 params, probe_tokens, fused_out) -> bool:
+    """Export, save and load the head and tail programs of ``spec``; True only
+    if head + tail give ``fused_out`` (the loaded fused program's tokens on
+    ``probe_tokens``) bit for bit, and token 0 equals its first column."""
+    try:
+        head_fn, tail_fn = make_head_fn(model, spec), make_tail_fn(model, spec)
+        with torch.no_grad():
+            _tok0, logits, inner = head_fn(params, probe_tokens)
+        head_x = slim(torch.export.export(head_fn, (params, probe_tokens)))
+        tail_x = slim(torch.export.export(tail_fn, (params, logits, inner)))
+        del logits, inner
+        cache.put_program(head_key(key), head_x)
+        cache.put_program(tail_key(key), tail_x)
+        head_p = cache.load_program(head_key(key))
+        tail_p = cache.load_program(tail_key(key))
+        with torch.inference_mode():
+            tok0, logits, inner = head_p(params, probe_tokens)
+            split_out = tail_p(params, logits, inner)
+        synchronize(probe_tokens.device)
+        return bool(split_out.shape == fused_out.shape and torch.equal(split_out, fused_out)
+                    and torch.equal(tok0[:, 0], fused_out[:, 0]))
+    except Exception:  # noqa: BLE001 - the split is an optimisation: boot fused
+        return False
+
+
 def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
            work_dir: str, device="cuda") -> Deployment:
     """Build the image of ``spec`` for ``device``. ``work_dir`` is where the
-    JAX package writes its generic checkpoint, which this slice does not
-    build; it is kept so the two ``deploy`` signatures match."""
+    generic checkpoint of the cold_jit drivers goes
+    (``<work_dir>/<key>_generic.npz``, as in the JAX package), written by
+    ``Deployment.ensure_generic`` on first use."""
     t_begin = t = now()
     times: Dict[str, float] = {}
 
@@ -308,13 +538,31 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
         raise RuntimeError(
             f"deploy {spec.name}: the saved program's tokens differ from the eager "
             f"program's on probe tokens ({booted.tolist()} vs {eager.tolist()})")
+    del program
     lap("verify")
 
+    # 1b) split image for streamed boots, published under derived keys and
+    # accepted only if bit-identical to the fused program on the probe
+    split_ok = _build_split(spec, model, cache, key, params, probe_tokens, booted)
+    if not split_ok:
+        cache.evict(head_key(key))
+        cache.evict(tail_key(key))
+    lap("split")
+
+    # 1c) which leaf does execution compute with first? Persisted into the
+    # snapshot index so a streamed restore moves leaves in that order
+    use_order = first_use_order(exported)
+    # the head program reads the whole parameter tree, so serving the first
+    # request needs every leaf resident
+    head_leaves = [p for p, _ in pytree.flatten_with_paths(params)] if split_ok else []
+    lap("first_use_order")
+
     # 2) pre-laid-out snapshot
-    snapshot_bytes = snapshots.save(key, params)
+    snapshot_bytes = snapshots.save(key, params, first_use_order=use_order)
     lap("snapshot")
     build_seconds = now() - t_begin
-    extra = {"program_format": "torch.export", "device": str(device)}
+    extra = {"program_format": "torch.export", "device": str(device),
+             "split_serve": split_ok, "first_use_order_len": len(use_order)}
     if snapshots.blobs is not None:
         # chunked (v2) snapshot: the manifest geometry, for dedup reports
         index = snapshots.read_index(key)
@@ -331,4 +579,7 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
     cache.put_manifest(key, manifest)
     return Deployment(spec=spec, image=ExecutorImage(manifest=manifest, spec=spec),
                       model=model, serve_fn=serve_fn, cache=cache, snapshots=snapshots,
-                      device=device, build_seconds=build_seconds, build_s=times)
+                      device=device, build_seconds=build_seconds,
+                      generic_ckpt=f"{work_dir}/{key}_generic.npz", build_s=times,
+                      first_use_order=use_order, head_leaves=head_leaves,
+                      split_ok=split_ok)

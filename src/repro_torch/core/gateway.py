@@ -1,11 +1,15 @@
-"""Gateway: the platform front door (port of ``repro.core.gateway``, cold mode).
+"""Gateway: the platform front door (port of ``repro.core.gateway``).
 
 Composes the whole stack:
 
     Gateway -> Dispatcher -> (Cluster of Hosts) -> Agent -> Driver -> Executor
 
 ``mode='cold'`` is the paper's proposal: every invoke is a unikernel cold
-start, no pools, trivial scaling. Deploy writes the image's program into the
+start, no pools, trivial scaling; ``mode='warm'`` is the incumbent (warm
+pools + ``WarmPoolAutoscaler`` + idle timeouts, the ``warm`` driver by
+default). Both run the same functions through the same dispatcher, and any
+invoke may name any driver of ``repro_torch.core.drivers.ALL_DRIVERS``.
+Deploy writes the image's program into the
 CompileCache and its weights as a v2 chunked snapshot into a global
 ChunkStore, so every host's boot goes through its program tier and its chunk
 tier (a delta restore). ``decode=`` adds the continuous-batching decode tier
@@ -14,12 +18,13 @@ tier (a delta restore). ``decode=`` adds the continuous-batching decode tier
 caller asks for the CPU — and nothing falls back to another device.
 
 Not ported yet, and refused rather than run as something else:
-``mode='warm'`` and ``batching=`` (the warm and pool drivers, the coalescer
-and its bucket programs: ROADMAP A4b) and ``forecast=`` (the predictive
-pre-boot planner: ROADMAP A7).
+``batching=`` (the coalescer and its bucket programs: ROADMAP A4c) and
+``forecast=`` (the predictive pre-boot planner: ROADMAP A7).
 
-Invariants: ``shutdown`` drains every decode loop and stops every thread the
-gateway started (the shared timer, the host pools); deployments are
+Invariants: ``shutdown`` drains every decode loop, stops every thread the
+gateway started (the shared timer, the autoscaler, the host pools) and
+flushes every warm pool and donor through the residency tracker — resident
+device memory is never silently dropped from the accounting; deployments are
 immutable once published to ``self.deployments``.
 """
 from __future__ import annotations
@@ -34,7 +39,7 @@ import numpy as np
 
 from repro_torch.core.agent import Agent
 from repro_torch.core.artifact import FunctionSpec
-from repro_torch.core.autoscaler import ColdOnlyScaler
+from repro_torch.core.autoscaler import ColdOnlyScaler, WarmPoolAutoscaler
 from repro_torch.core.blobstore import ChunkStore
 from repro_torch.core.cluster import Cluster
 from repro_torch.core.compile_cache import CompileCache
@@ -62,16 +67,12 @@ class Gateway:
                  forecast=None,
                  decode: Union[bool, DecodeConfig, None] = None,
                  device="cuda") -> None:
-        if mode == "warm":
-            raise NotImplementedError(
-                "Gateway(mode='warm') needs the warm driver and its autoscaler, "
-                "not ported yet (ROADMAP A4b)")
-        if mode != "cold":
+        if mode not in ("cold", "warm"):
             raise ValueError(f"mode must be 'cold' or 'warm', got {mode!r}")
         if batching:
             raise NotImplementedError(
                 "Gateway(batching=...) needs the coalescer and its bucket programs, "
-                "not ported yet (ROADMAP A4b)")
+                "not ported yet (ROADMAP A4c)")
         if forecast:
             raise NotImplementedError(
                 "Gateway(forecast=...) needs the predictive pre-boot planner, "
@@ -96,7 +97,8 @@ class Gateway:
         self._clock = clock
         # resilience=True (or a ResilienceConfig) adds per-request deadlines,
         # early shedding of deadline-infeasible work, and a brownout ladder
-        # (hedging and speculation off) that engages under overload
+        # (hedging and speculation off, streamed restores fall back to eager)
+        # that engages under overload
         self.res_cfg: Optional[ResilienceConfig] = None
         self.admission: Optional[AdmissionController] = None
         if resilience:
@@ -116,7 +118,10 @@ class Gateway:
         if decode:
             self.decode_cfg = decode if isinstance(decode, DecodeConfig) \
                 else DecodeConfig()
-        self.scaler = ColdOnlyScaler()
+        if mode == "warm":
+            self.scaler = WarmPoolAutoscaler(self.cluster, self.deployments, clock=clock)
+        else:
+            self.scaler = ColdOnlyScaler()
         self.scaler.start()
         self._lock = threading.Lock()
 
@@ -146,7 +151,7 @@ class Gateway:
     def default_driver(self) -> str:
         if self._default_driver is not None:
             return self._default_driver
-        return "unikernel"
+        return "unikernel" if self.mode == "cold" else "warm"
 
     def invoke_async(self, fn_name: str, tokens: Optional[np.ndarray] = None,
                      driver: Optional[str] = None, label: Optional[str] = None,
@@ -178,9 +183,13 @@ class Gateway:
                 return f
             t_admit = self._now()
             if self.admission.brownout:
-                # brownout ladder: stop paying for tail insurance
+                # brownout ladder: stop paying for tail insurance (hedges,
+                # speculation) and stop carrying background restore tails —
+                # eager restores release host slots predictably under overload
                 hedging = False
                 speculative = False
+                if driver == "unikernel_stream":
+                    driver = "unikernel"
 
         fut = self.dispatcher.submit(dep, tokens, driver, label=label,
                                      speculative=speculative,
@@ -252,7 +261,8 @@ class Gateway:
     def placement_summary(self) -> Dict[str, object]:
         """Scheduler + tiered-cache health: per-host hit/miss/evict counters and
         bytes, fleet hit rates, peer vs store fetches, and per-host residency
-        (zero by construction for cold)."""
+        (warm-pool device memory for the warm scaler; zero by construction
+        for cold)."""
         summary = self.cluster.scheduler.summary()
         residency = self.scaler.per_host_residency(self.cluster)
         for host_id, entry in summary["hosts"].items():
@@ -300,4 +310,17 @@ class Gateway:
             decoder.close()
         self.dispatcher.close()         # shared hedge-timer thread
         self.scaler.stop()
+        for host in self.cluster.hosts:
+            # flush warm pools so their residency lands in the tracker (via on_exit)
+            warm = host.drivers.get("warm")
+            if warm is not None:
+                for key in warm.pool_keys():
+                    warm.expire_idle(key, 0)
+            # evict fork/process donors too — they hold device memory for the
+            # platform's whole lifetime and would otherwise never reach
+            # _account_exit
+            for name in ("fork", "process"):
+                drv = host.drivers.get(name)
+                if drv is not None:
+                    drv.evict_donors()
         self.cluster.shutdown()

@@ -2,8 +2,7 @@
 
 Copy of ``repro.core.scheduler``; the program tier's loaded memo is a
 ``torch.export`` module here (see :class:`ProgramArtifact`). The forecast
-planner's ``prefetch_program`` and the streamed restore's partial-snapshot
-accounting come with the forecast and ``unikernel_stream`` slices.
+planner's ``prefetch_program`` comes with the forecast slice.
 
 The cold-only design makes every request pay a full boot — which is exactly why
 *where* the boot runs starts to matter at fleet scale. "How Low Can You Go?"
@@ -319,6 +318,12 @@ class HostArtifactCache:
         self.peer_serves = 0            # reads served TO other hosts
         self.bytes_from_peer = 0
         self.bytes_from_store = 0
+        # streamed (first-use-ordered) restores: completed count + the set
+        # still in flight on this host — a partial restore's chunks are only
+        # published to the directory once the FULL snapshot is resident, so
+        # peers never fetch a range this host doesn't hold yet
+        self.partial_restores = 0
+        self._partial: Dict[str, int] = {}
 
     def tier(self, name: str):
         return self.programs if name == PROGRAM_TIER else self.snapshots
@@ -403,6 +408,21 @@ class HostArtifactCache:
         """Advertise a snapshot (and thus its chunk range) as resident here."""
         self.directory.publish(SNAPSHOT_TIER, key, self.host_id)
 
+    # ----------------------------------------------------- partial restores
+    def begin_partial_snapshot(self, key: str, nbytes: int) -> None:
+        """A streamed restore of ``key`` started on this host (blobstore's
+        ``stream_restore`` calls this before the first chunk moves)."""
+        with self._lock:
+            self._partial[key] = int(nbytes)
+
+    def end_partial_snapshot(self, key: str) -> None:
+        """The streamed restore finished (success or failure) — it is no
+        longer in flight; success additionally registers + publishes the
+        snapshot through the normal chunk-tier path."""
+        with self._lock:
+            if self._partial.pop(key, None) is not None:
+                self.partial_restores += 1
+
     @staticmethod
     def _simulate(nbytes: int, s_per_gb: float) -> None:
         if s_per_gb > 0.0 and nbytes > 0:
@@ -414,6 +434,8 @@ class HostArtifactCache:
             peer_serves = self.peer_serves
             bytes_from_peer = self.bytes_from_peer
             bytes_from_store = self.bytes_from_store
+            partial_restores = self.partial_restores
+            partial_in_flight = len(self._partial)
         return {
             "program": self.programs.stats(),
             "snapshot": self.snapshots.stats(),
@@ -422,6 +444,8 @@ class HostArtifactCache:
             "peer_serves": peer_serves,
             "bytes_from_peer": bytes_from_peer,
             "bytes_from_store": bytes_from_store,
+            "partial_restores": partial_restores,
+            "partial_in_flight": partial_in_flight,
         }
 
 
@@ -607,6 +631,7 @@ class Scheduler:
         peer_fetches = store_fetches = 0
         bytes_from_peer = bytes_from_store = 0
         bytes_deduped = 0
+        partial_restores = partial_in_flight = 0
         for h in self.cluster.hosts:
             cache = getattr(h, "cache", None)
             if cache is None:
@@ -623,6 +648,8 @@ class Scheduler:
             bytes_from_peer += s["bytes_from_peer"]
             bytes_from_store += s["bytes_from_store"]
             bytes_deduped += int(s["snapshot"].get("bytes_deduped", 0))
+            partial_restores += s["partial_restores"]
+            partial_in_flight += s["partial_in_flight"]
         with self._lock:
             routed, affinity_routed = self.routed, self.affinity_routed
             quarantine_skips = self.quarantine_skips
@@ -637,6 +664,8 @@ class Scheduler:
             "bytes_from_peer": bytes_from_peer,
             "bytes_from_store": bytes_from_store,
             "bytes_deduped": bytes_deduped,
+            "partial_restores": partial_restores,
+            "partial_in_flight": partial_in_flight,
             "routed": routed,
             "affinity_routed": affinity_routed,
             "quarantine_skips": quarantine_skips,

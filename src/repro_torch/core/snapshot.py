@@ -24,9 +24,16 @@ Leaves are numbered in JAX's flattening order (sorted dict keys) and named by
 ``keystr`` paths (``['embed']['tok']``); a bf16 leaf is stored as a uint16
 view with the logical dtype in the index and read back with
 ``Tensor.view(torch.bfloat16)``. A snapshot written by either package
-restores into the other with no transform. The v2.1 ``first_use_order`` of
-the JAX package is read (``leaf_order``) but not written: the port has no
-first-use profiling yet.
+restores into the other with no transform. ``save`` persists the deploy-time
+``first_use_order`` (leaf paths in the order execution first needs them,
+:func:`repro_torch.core.deploy.first_use_order`) into the index of either
+format, as the JAX package's v2.1 manifest does; ``leaf_order`` and
+``iter_restore`` stream leaves in that order.
+
+The generic checkpoint (``save_generic_checkpoint`` / ``load_generic_host``)
+is the cold_jit drivers' slow path: one ``.npz`` holding every leaf as
+float32 under ``a{i}`` in JAX's flattening order, parsed in full and cast
+back on load — the JAX package's file, array for array.
 
 Invariants: ``save`` publishes atomically (a reader never sees a partial
 snapshot); v2 chunk refcounts are balanced — one incref per unique chunk per
@@ -38,10 +45,12 @@ import json
 import os
 import shutil
 import threading
+import zipfile
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch import pytree
 from repro_torch.core.blobstore import split_chunks
@@ -72,17 +81,23 @@ class SnapshotStore:
         return self.has(name) and self.read_index(name).get("format") == 2
 
     # ------------------------------------------------------------------- save
-    def save(self, name: str, params) -> int:
+    def save(self, name: str, params,
+             first_use_order: Optional[List[str]] = None) -> int:
         """Write a snapshot of a tensor tree atomically; returns stored bytes
-        (v2: the leaves' logical bytes)."""
+        (v2: the leaves' logical bytes). ``first_use_order`` (leaf paths in
+        execution first-touch order) goes into the index, where restores read
+        it as their streaming order; it is advisory, and an index without it
+        restores in ordinal order."""
         if self.blobs is not None:
-            return self._save_v2(name, params)
+            return self._save_v2(name, params, first_use_order)
         items = pytree.flatten_with_paths(params)
         d = self._dir(name)
         tmp = d.with_name(d.name + ".tmp")
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir(parents=True)
         index: Dict[str, Any] = {"leaves": [], "treedef": None}
+        if first_use_order:
+            index["first_use_order"] = list(first_use_order)
         total = 0
         for i, (path, leaf) in enumerate(items):
             stored, logical = to_storable(leaf)
@@ -99,11 +114,15 @@ class SnapshotStore:
             self._index_cache[name] = index
         return total
 
-    def _save_v2(self, name: str, params) -> int:
+    def _save_v2(self, name: str, params,
+                 first_use_order: Optional[List[str]] = None) -> int:
         items = pytree.flatten_with_paths(params)
         chunk_bytes = self.blobs.chunk_bytes
         index: Dict[str, Any] = {"format": 2, "chunk_bytes": chunk_bytes,
                                  "leaves": [], "treedef": None}
+        if first_use_order:
+            index["version"] = "2.1"
+            index["first_use_order"] = list(first_use_order)
         raws = []
         for path, leaf in items:
             stored, logical = to_storable(leaf)
@@ -200,6 +219,23 @@ class SnapshotStore:
             leaves[i] = self._leaf_from_chunks(entries[i], chunk_bytes)
         return _rebuild_structure(index["treedef"], leaves)
 
+    def iter_restore(self, name: str):
+        """Yield ``(ordinal, path, host_leaf)`` in first-use order, both
+        formats — the streamed restore's producer over the global store: v2
+        assembles each leaf from the chunk store as it is reached, v1 opens
+        one mmap'd .npy at a time."""
+        d = self._dir(name)
+        index = self.read_index(name)
+        entries = index["leaves"]
+        for i in self.leaf_order(index):
+            e = entries[i]
+            if index.get("format") == 2:
+                leaf = self._leaf_from_chunks(e, self.blobs.get)
+            else:
+                arr = np.load(d / e["file"], mmap_mode="r")
+                leaf = from_storable(arr, e["dtype"]).reshape(e["shape"])
+            yield i, e["path"], leaf
+
     def iter_host_leaves(self, name: str):
         """Yield host leaves (CPU tensors) in ordinal order: v1 over mmap'd
         files, v2 assembled from the global chunk store."""
@@ -234,6 +270,57 @@ class SnapshotStore:
                     self.blobs.decref(c for e in index["leaves"] for c in e["chunks"])
             self._index_cache.pop(name, None)
             shutil.rmtree(self._dir(name), ignore_errors=True)
+
+
+# --------------------------------------------------------------- generic ckpt
+
+def save_generic_checkpoint(path: str | Path, params) -> int:
+    """The 'interpreted-language' comparison path: one uncompressed ``.npz``,
+    every leaf as float32 under ``a{i}`` in JAX's flattening order, no layout
+    guarantee — loading pays a full parse and a cast. ``params`` is a tree of
+    tensors or numpy arrays, or an iterable of leaves already in that order;
+    leaves are converted and written one at a time, so the file never sits
+    whole in host memory (``np.savez`` holds every array at once). Returns
+    the file's size in bytes."""
+    path = Path(path if str(path).endswith(".npz") else f"{path}.npz")
+    leaves = pytree.leaves(params) if isinstance(params, (dict, list, tuple)) else params
+    tmp = path.with_name(path.name + ".tmp")
+    with zipfile.ZipFile(tmp, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for i, leaf in enumerate(leaves):
+            if isinstance(leaf, torch.Tensor):
+                arr = leaf.detach().to("cpu", torch.float32).numpy()
+            else:
+                arr = np.asarray(leaf, dtype=np.float32)
+            with zf.open(f"a{i}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.ascontiguousarray(arr), allow_pickle=False)
+    os.replace(tmp, path)                                    # atomic publish
+    return path.stat().st_size
+
+
+def load_generic_host(path: str | Path, like) -> Any:
+    """Host half of the generic load: full parse + cast back to the dtypes of
+    ``like`` (a tree of tensors or :class:`ParamSpec`-like leaves with
+    ``dtype``), as CPU tensors. No device transfer."""
+    with np.load(path) as z:
+        arrays = [z[f"a{i}"] for i in range(len(z.files))]
+    struct = pytree.structure(like, is_leaf=_has_dtype)
+    targets = pytree.leaves(like, is_leaf=_has_dtype)
+    if len(arrays) != len(targets):
+        raise ValueError(f"generic checkpoint {path}: {len(arrays)} arrays for "
+                         f"{len(targets)} leaves")
+    return pytree.unflatten(struct, [torch.from_numpy(a).to(t.dtype).reshape(t.shape)
+                                     for a, t in zip(arrays, targets)])
+
+
+def load_generic_checkpoint(path: str | Path, like, device="cuda") -> Any:
+    """Load + cast back to the target dtypes on ``device`` (pays the
+    transform in the start path)."""
+    return pytree.tree_map(lambda t: t.to(device), load_generic_host(path, like))
+
+
+def _has_dtype(x) -> bool:
+    return not isinstance(x, (dict, list, tuple)) and hasattr(x, "dtype")
 
 
 # --------------------------------------------- structure (de)serialization

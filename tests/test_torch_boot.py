@@ -36,7 +36,7 @@ from repro_torch.core.boot import (
 )
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.deploy import deploy
-from repro_torch.core.drivers import UnikernelDriver, make_drivers
+from repro_torch.core.drivers import ALL_DRIVERS, UnikernelDriver, make_drivers
 from repro_torch.core.executor import ExecutorState
 from repro_torch.core.metrics import Timeline
 from repro_torch.core.snapshot import SnapshotStore
@@ -124,7 +124,7 @@ def test_cold_start_path_end_to_end(torch_deployment):
     dep = torch_deployment
     assert dep.cache.has(dep.image.key) and dep.snapshots.has(dep.image.key)
     assert dep.image.manifest.extra["program_format"] == "torch.export"
-    assert set(make_drivers()) == {"unikernel"}
+    assert tuple(make_drivers()) == ALL_DRIVERS
     tokens = torch.from_numpy(dep.example_tokens(seed=3))
     driver = UnikernelDriver()
     tl = Timeline()

@@ -33,6 +33,7 @@ from repro.core.deploy import deploy as jax_deploy
 from repro.core.metrics import Recorder as JaxRecorder
 from repro.core import resilience as jax_resilience
 from repro.core.snapshot import SnapshotStore as JaxSnapshotStore
+from repro.core.drivers import ALL_DRIVERS as JAX_ALL_DRIVERS
 import repro_torch.configs.base as torch_configs
 from repro_torch.core import paging, scheduler
 from repro_torch.core.artifact import FunctionSpec
@@ -410,7 +411,7 @@ def test_cluster_and_scheduler_copies_route_like_jax_under_kill_and_add():
     assert scheduler.hrw_hosts("k", [0, 3, 5, 9], 2) == \
         jax_scheduler.hrw_hosts("k", [0, 3, 5, 9], 2)
     hosts = Cluster(n_hosts=2).hosts
-    assert set(hosts[0].drivers) == {"unikernel"}
+    assert tuple(hosts[0].drivers) == JAX_ALL_DRIVERS
     assert hosts[0].drivers["unikernel"] is not hosts[1].drivers["unikernel"]   # per host
 
 

@@ -16,8 +16,9 @@ same):
 * cold residency leaves idle byte-seconds ~0 (checked where no decode tier
   holds an executor between requests); speculative pre-boots are claimed;
   ``shutdown`` leaves no thread behind;
-* ``mode="warm"``, ``batching`` and ``forecast`` raise ``NotImplementedError``,
-  and the default device is the GPU, with no fallback to the CPU.
+* ``batching`` and ``forecast`` raise ``NotImplementedError`` (``mode="warm"``
+  is ported: ``tests/test_torch_drivers.py`` holds it), and the default
+  device is the GPU, with no fallback to the CPU.
 """
 import dataclasses
 import threading
@@ -239,8 +240,7 @@ def test_shutdown_leaves_no_thread_behind(tmp_path):
     assert not set(threading.enumerate()) - before
 
 
-@pytest.mark.parametrize("kw, item", [({"mode": "warm"}, "A4b"), ({"batching": True}, "A4b"),
-                                      ({"forecast": True}, "A7")])
+@pytest.mark.parametrize("kw, item", [({"batching": True}, "A4c"), ({"forecast": True}, "A7")])
 def test_unported_modes_raise_naming_the_roadmap_item(tmp_path, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Gateway(work_dir=str(tmp_path), device="cpu", **kw)

@@ -38,12 +38,14 @@ def test_port_sources_were_found():
             "paged_decode_attention.py", "mlstm.py", "ssm.py", "xlstm_1_3b.py",
             "selective_scan.py", "moe.py", "jamba_1_5_large_398b.py", "gateway.py",
             "dispatcher.py", "agent.py", "timerwheel.py", "blobstore.py", "autoscaler.py",
-            "batching.py"} <= names
+            "batching.py", "drivers.py", "executor.py", "snapshot.py",
+            "compile_cache.py"} <= names
 
 
 def test_importing_the_port_builds_nothing_and_loads_no_jax():
     code = ("import sys; import repro_torch.kernels.ops, repro_torch.core.drivers, "
-            "repro_torch.core.decode, repro_torch.core.cluster, repro_torch.core.gateway; "
+            "repro_torch.core.decode, repro_torch.core.cluster, repro_torch.core.gateway, "
+            "repro_torch.core.autoscaler, repro_torch.core.boot, repro_torch.core.executor; "
             "from repro_torch.core import FunctionSpec, Gateway; "
             "from repro_torch.kernels import _cuda; "
             "assert _cuda._lib is None; "

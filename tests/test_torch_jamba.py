@@ -369,7 +369,8 @@ def test_deploy_exports_one_scan_node_per_mamba_layer_and_gives_jax_tokens(tmp_p
                         reduced=False)
     dep = deploy(spec, CompileCache(tmp_path / "tc"), SnapshotStore(tmp_path / "ts"),
                  str(tmp_path), device="cpu")
-    assert set(dep.build_s) == {"init", "export", "save", "load", "verify", "snapshot"}
+    assert set(dep.build_s) == {"init", "export", "save", "load", "verify", "split",
+                                "first_use_order", "snapshot"}
     program = dep.load_program()
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
     K, n_mamba, n_attn = spec.decode_steps, 6, 2

@@ -281,7 +281,8 @@ def test_deploy_exports_one_slstm_node_per_block_and_gives_jax_tokens(tmp_path):
                         reduced=False)
     dep = deploy(spec, CompileCache(tmp_path / "tc"), SnapshotStore(tmp_path / "ts"),
                  str(tmp_path), device="cpu")
-    assert set(dep.build_s) == {"init", "export", "save", "load", "verify", "snapshot"}
+    assert set(dep.build_s) == {"init", "export", "save", "load", "verify", "split",
+                                "first_use_order", "snapshot"}
     program = dep.load_program()
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
     passes = 1 + spec.decode_steps
