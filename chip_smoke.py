@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's cold-start serve path (llama3.2-3b through the
-Gateway, under each driver of the paper's start-path taxonomy and in warm
-mode; xlstm-1.3b and jamba-1.5-large) and its continuous-batching decode
-tier on one NVIDIA GPU and check them.
+Gateway, under each driver of the paper's start-path taxonomy, in warm mode,
+and coalesced into bucket programs under forecast-driven pre-boot;
+xlstm-1.3b and jamba-1.5-large) and its continuous-batching decode tier on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -16,7 +17,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Kernels vs plain: each kernel against its plain PyTorch version on CUDA
    tensors, at the paths' shapes and at edge cases (ragged lengths,
    q_offset, bidirectional, length 0 and S, NaN past length, jamba's 64/8
-   heads for flash and decode and the decode tier's admit (B = 1) for
+   heads for flash and decode, the coalesced path's bucket programs (B = 8
+   and 16; B = 16 timed) for both, and the decode tier's admit (B = 1) for
    flash, timed too; for flash also rows that fill no 64-row block, Skv no
    multiple of the key tile, a diagonal tile partly visible at q_offset, MHA
    and bf16 at D = 32, and the host cost of its TMA tensor maps; for both
@@ -43,7 +45,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    slots_per_host=2, mode="cold", hedging=False, scheduler=
    SchedulerConfig(snapshot_tier_bytes=4 << 30), decode=DecodeConfig(slots=8,
    page_size=16))`` on the GPU; ``gw.deploy`` full-width llama3.2-3b (bf16,
-   its depth cut to 8 of 28 layers for the time limit, random weights from
+   its depth cut to 2 of 28 layers for the time limit, random weights from
    the spec's seed: program, v2 chunked snapshot, decode bundle); then
    request 1 (the store path), request 2 (the same host: program and tree
    memos, no deserialize), a burst of 4 through ``gw.invoke_many``
@@ -86,7 +88,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    cold gateway's zero, until the idle timeout expires its pools; then both
    gateways' ``shutdown()``, which must leave no non-daemon thread and the
    device memory allocated within 64 MiB of its value before the phase.
-3c. The xlstm serve path, after llama's gateway is shut down: ``deploy``
+3f. Coalescing and forecast-driven pre-boot, after phase 3e's gateways are
+   shut down: ``Gateway(n_hosts=2, slots_per_host=2, mode="cold",
+   hedging=False, batching=BatchingConfig(buckets=(1, 2, 4)),
+   forecast=ForecastConfig(model="ewma", ...), scheduler=
+   SchedulerConfig(snapshot_tier_bytes=4 << 30))``; ``gw.deploy``
+   full-width llama3.2-3b cut to 2 of 28 layers (phase 3's function in an
+   image of its own: the base program and the bucket programs at 8 and 16
+   rows, each one's export, save, load and verify seconds logged); a burst
+   of 8 distinct seeded prompts and a pair through ``gw.invoke_many``
+   (batches of 16, 16 and 8 rows: each logs its host, boot stages and
+   execution; ``batching_summary``; fewer boots than requests; L flash + L
+   x K decode launches per batch; each member's tokens are its rows of the
+   bucket program's output, its prefill logits pass the f32-referenced
+   gate, and every kernel call of those prefills matches its plain version;
+   token agreement with the per-request path is logged, not gated, beside
+   each member's rows of the bucket's prefill and decode steps against its
+   own 4-row run on the same tokens); a ramp of single requests rising from
+   0.5 to 4 per second over 10 s, then quiet (at least one request rides a
+   parked planner boot; ``forecast_summary``: planned = claimed + expired +
+   parked; a cool-down to pool target 0; a host's program tier
+   prefetched); the learned forecaster fitted on the card and on the CPU on
+   seeded windows of a diurnal + burst rate (loss falls, predictions >= 0
+   and within 1e-3 relative of the CPU fit); ``shutdown()`` (no non-daemon
+   thread left, device memory within 64 MiB of before the phase).
+3c. The xlstm serve path, after phase 3f's gateway is shut down: ``deploy``
    (v1 snapshot; the ``unikernel`` driver called directly) full-width
    xlstm-1.3b (bf16, its depth cut to 1 of 6 periods of 7 mLSTM + 1 sLSTM
    for the time limit, random weights from the spec's seed), then the
@@ -102,7 +128,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    alone, every scan and flash call of a kernel-path prefill against its
    plain version, and the prefill-logit gate. Each path logs its peak device
    memory, and the free disk and host memory before its deploy.
-4. A ``kernels`` JSON line, and the last line
+4. A ``kernels`` JSON line (launches per path, flash and decode also at
+   the 16-row bucket's shape), and the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the repository around it (it imports
@@ -129,9 +156,12 @@ MUFU_PER_CLOCK_PER_SM = 16          # exponentials (ex2) per clock per SM, Hoppe
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 GRAPH_CALLS = 200                   # wrapper calls captured in one CUDA graph (device_ms)
 
-LLAMA_LAYERS = 8                    # of 28: the llama paths' depth, cut for the time limit
+LLAMA_LAYERS = 2                    # of 28: phases 3, 3b and 3e's depth, cut for the time limit
 LLAMA_ARCH = f"llama3.2-3b:{LLAMA_LAYERS}L"
 SPEC = dict(arch=LLAMA_ARCH, reduced=False, batch_size=4, prompt_len=512, decode_steps=16)
+COALESCE_LAYERS = 2                 # of 28: phase 3f's depth, cut for the time limit
+COALESCE_ARCH = f"llama3.2-3b:{COALESCE_LAYERS}L"
+COALESCE_SPEC = dict(SPEC, arch=COALESCE_ARCH)
 XLSTM_PERIODS = 1                   # of 6: the xlstm path's depth, cut for the time limit
 XLSTM_ARCH = f"xlstm-1.3b:{XLSTM_PERIODS}P"
 XLSTM_SPEC = dict(SPEC, arch=XLSTM_ARCH)
@@ -896,10 +926,10 @@ def gateway_path(torch, spec, work):
     work.mkdir(parents=True, exist_ok=True)
     torch.cuda.reset_peak_memory_stats()
     log(f"before deploy {spec.name}: {memory_line(torch, work)}")
-    # The 8-layer snapshot (2.40 GB) is larger than the default chunk tier
-    # (SchedulerConfig.snapshot_tier_bytes = 2 << 30), which refuses a
-    # snapshot larger than itself: with the default every boot would pay the
-    # store path and the tree memo would never hit. 4 GiB holds it.
+    # A chunk tier refuses a snapshot larger than itself, and then every boot
+    # pays the store path and the tree memo never hits: 4 GiB holds the
+    # snapshot at up to 12 layers (8 layers: 2.40 GB, over the default
+    # SchedulerConfig.snapshot_tier_bytes = 2 << 30).
     gw = Gateway(n_hosts=2, slots_per_host=2, mode="cold", hedging=False,
                  scheduler=SchedulerConfig(snapshot_tier_bytes=4 << 30),
                  decode=DecodeConfig(slots=DECODE_SLOTS, page_size=PAGE_SIZE),
@@ -1200,6 +1230,378 @@ def driver_taxonomy(torch, gw, dep, want_tokens) -> dict:
     return launches
 
 
+# -------------------------------------------------------------------- phase 3f
+
+COALESCE_BUCKETS = (1, 2, 4)        # request-count buckets: 4, 8 and 16 token rows
+# a window wide enough that a burst submitted in one loop lands in full
+# batches (the JAX package's tests take the same)
+COALESCE_WINDOW_S = 0.02
+COALESCE_BURST = 8                  # distinct prompts in one burst: two batches of 4
+COALESCE_PAIR = 2                   # then two more: one batch in the 8-row bucket
+RAMP_S = 10.0                       # single requests at a rate rising over this long
+RAMP_RPS = (0.5, 4.0)               # from, to
+QUIET_WAIT_S = 40.0                 # how long the quiet may take to cool the pool down
+FORECAST_SPEC = dict(model="ewma", bucket_s=1.0, horizon_s=2.0, plan_interval_s=0.5,
+                     season_period_s=8.0, season_buckets=8, preboot_ttl_s=4.0,
+                     max_preboots_per_tick=2, cool_rate_threshold=0.5)
+FIT_EPOCHS = 20                     # the learned forecaster's fit, card and CPU
+FIT_RTOL = 1e-3                     # card predictions vs the CPU fit's
+
+
+def ramp_times(duration: float, rps: tuple) -> list:
+    """Arrival offsets of single requests whose rate rises linearly from
+    ``rps[0]`` to ``rps[1]`` over ``duration`` seconds."""
+    times, t = [], 0.0
+    while t < duration:
+        times.append(t)
+        t += 1.0 / (rps[0] + (rps[1] - rps[0]) * t / duration)
+    return times
+
+
+def rate_windows(np, window: int, horizon: int, seed: int = 7, n_buckets: int = 4096):
+    """Seeded training windows for the learned forecaster: Poisson counts per
+    bucket of a diurnal rate (period 256 buckets, 20 +- 16 per bucket) with
+    bursts (+60 for 8 buckets at 24 random starts). Returns (X [n, window],
+    y [n]): each window's next ``horizon`` buckets' mean rate."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_buckets)
+    rate = 20.0 * (1.0 + 0.8 * np.sin(2 * np.pi * t / 256.0))
+    for start in rng.integers(0, n_buckets - 8, 24):
+        rate[start:start + 8] += 60.0
+    counts = rng.poisson(rate).astype(np.float32)
+    n = n_buckets - window - horizon
+    X = np.stack([counts[i:i + window] for i in range(n)])
+    y = np.asarray([counts[i + window:i + window + horizon].mean() for i in range(n)],
+                   dtype=np.float32)
+    return X, y
+
+
+def step_logits(torch, model, params, tokens, capacity: int, steps: int, forced=None):
+    """The kernel path's logits of the serve program's loop on ``tokens``:
+    the prefill's, then each decode step's, each [B, V] in float32. The
+    step after logits ``k`` is fed ``forced[:, k]`` when given, else their
+    argmax, as the program does. Returns (logits list of ``steps`` + 1, the
+    fed tokens [B, steps])."""
+    from repro_torch.models.transformer import split_cache, split_layers
+
+    p = {**params, "stack": split_layers(params["stack"])}
+    logits, cache = model.prefill(p, {"tokens": tokens}, capacity=capacity)
+    cache = {**cache, "inner": split_cache(model.cfg, cache["inner"])}
+    out, fed = [logits.float()], []
+    for k in range(steps):
+        tok = forced[:, k:k + 1] if forced is not None else \
+            torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        logits, cache = model.decode(p, cache, tok)
+        out.append(logits.float())
+        fed.append(tok[:, 0])
+    return out, torch.stack(fed, dim=1)
+
+
+def steps_log(torch, dep, params, tokens, batch, rows: int, i: int) -> None:
+    """Log, for each member of ``batch``, its rows of the bucket's decode
+    steps against its own ``rows``-row run fed the same tokens (see
+    ``member_gates``)."""
+    spec = dep.spec
+    cap = spec.prompt_len + spec.decode_steps
+    bucket, fed = step_logits(torch, dep.model, params, tokens, cap, spec.decode_steps)
+    for m in range(batch["n"]):
+        r = slice(m * rows, (m + 1) * rows)
+        own, _ = step_logits(torch, dep.model, params, tokens[r], cap, spec.decode_steps,
+                             forced=fed[r])
+        same = [bool(torch.equal(bk[r], ok)) for bk, ok in zip(bucket, own)]
+        until = "at every step" if all(same) else \
+            f"until step {same.index(False)} (0: the prefill)"
+        worst = max(rel_l2(bk[r], ok) for bk, ok in zip(bucket, own))
+        flips = []
+        for k, (bk, ok) in enumerate(zip(bucket[:-1], own[:-1])):
+            a, b_ = bk[r].argmax(-1), ok.argmax(-1)
+            for row in (a != b_).nonzero().flatten().tolist():
+                flips.append((k, row, round((ok[row, b_[row]] - ok[row, a[row]]).item(), 5)))
+        log(f"batch {i + 1} member {m + 1} ({batch['padded_rows']} rows): decode steps vs its "
+            f"own {rows}-row run on the same fed tokens (kernel path, no gate): logits "
+            f"bit-identical {until}"
+            f" | max rel_l2 over the {len(bucket)} logits {worst:.4g} | greedy choices that "
+            f"differ (step, row, logit gap) {flips}")
+
+
+def member_gates(torch, dep, batches, work, device="cuda") -> None:
+    """Each member of each coalesced batch against the f32 reference: the
+    kernel path's prefill logits of the stacked bucket tokens, sliced to the
+    member's rows, no less accurate than the plain bf16 path's (rel L2 at most
+    2x), and every kernel call of those prefills against its plain version.
+    Beside each member's gate it logs how far its rows of the bucket's
+    prefill are from the kernel path's prefill of its own prompt alone (the
+    per-request program's shape, ``batch_size`` rows): of the plain bf16
+    error's order if the two shapes only round differently, far above it if
+    a bucket laid a member's rows out wrong. The same comparison follows the
+    decode steps, the member alone fed the bucket's greedy tokens: the first
+    step whose logits differ, the largest rel L2 over the steps, and each
+    greedy choice the two shapes make differently with its logit gap."""
+    from repro_torch import pytree
+    from repro_torch.core.boot import streamed_device_put
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    spec, cfg, key = dep.spec, dep.model.cfg, dep.image.key
+    host = dep.snapshots.load_host(key)
+    params = streamed_device_put(host, device)
+    rows = spec.batch_size
+    lk, lp, alone = [], [], []
+    with torch.inference_mode():
+        for i, b in enumerate(batches):
+            tokens = torch.from_numpy(b["tokens"]).to(device)
+            with recorded_kernel_calls(ops) as calls:
+                lk.append(dep.model.prefill(params, {"tokens": tokens},
+                                            capacity=spec.prompt_len)[0].float())
+            check_recorded_calls(torch, calls)
+            del calls
+            alone.append([dep.model.prefill(params, {"tokens": tokens[m * rows:(m + 1) * rows]},
+                                            capacity=spec.prompt_len)[0].float()
+                          for m in range(b["n"])])
+            steps_log(torch, dep, params, tokens, b, rows, i)
+            with ops.impl_scope("plain"):
+                lp.append(dep.model.prefill(params, {"tokens": tokens},
+                                            capacity=spec.prompt_len)[0].float())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), dep.model.max_seq)
+    l32 = []
+    with torch.inference_mode(), ops.impl_scope("plain"):
+        params32 = pytree.tree_map(lambda t: t.to(device).float(), host)
+        for b in batches:
+            tokens = torch.from_numpy(b["tokens"]).to(device)
+            l32.append(model32.prefill(params32, {"tokens": tokens},
+                                       capacity=spec.prompt_len)[0])
+        del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, b in enumerate(batches):
+        for m in range(b["n"]):
+            r = slice(m * rows, (m + 1) * rows)
+            err_k, err_p = rel_l2(lk[i][r], l32[i][r]), rel_l2(lp[i][r], l32[i][r])
+            own = alone[i][m]
+            log(f"batch {i + 1} member {m + 1} ({b['padded_rows']} rows): prefill logits vs "
+                f"the f32 plain path: rel_l2 kernel path {err_k:.4g}, plain bf16 path "
+                f"{err_p:.4g} (gate: kernel <= 2 x plain) | vs its own {rows}-row prefill "
+                f"(kernel path, no gate): rel_l2 {rel_l2(lk[i][r], own):.4g}, max_abs_err "
+                f"{(lk[i][r] - own).abs().max().item():.4g}, bit-identical "
+                f"{bool(torch.equal(lk[i][r], own))}, argmax agreement "
+                f"{(lk[i][r].argmax(-1) == own.argmax(-1)).float().mean().item():.2f}")
+            if not (bool(torch.isfinite(lk[i][r]).all()) and err_k <= 2.0 * err_p):
+                raise AssertionError(f"batch {i + 1} member {m + 1}: kernel path's prefill "
+                                     "logits are less accurate than the plain path's")
+    log(f"member gates: {memory_line(torch, work)}")
+
+
+def coalesced_path(torch, work, device="cuda") -> dict:
+    """Phase 3f: the coalescer's bucket programs and the forecast planner on
+    llama at ``COALESCE_LAYERS`` layers, through ``Gateway(batching=...,
+    forecast=...)``.
+
+    Deploy (base program + bucket programs at 8 and 16 rows); a burst of
+    ``COALESCE_BURST`` distinct prompts and a pair after it through
+    ``gw.invoke_many`` (fewer boots than requests; each batch makes L flash and
+    L x K decode launches; each member's rows are the bucket program's rows
+    for it, and its prefill logits pass the f32-referenced gate); a ramp of
+    single requests at a rising rate, then quiet (a request rides a parked
+    planner boot; planned = claimed + expired; a cool-down is published; a
+    host's program tier was prefetched); the learned forecaster fitted on the
+    card and on the CPU (loss falls, predictions >= 0 and equal within
+    ``FIT_RTOL``); ``shutdown()`` (no non-daemon thread left, device memory
+    back within ``MEMORY_SLACK`` of its value before the phase). Returns the
+    kernel launches of the phase's requests."""
+    import threading
+
+    import numpy as np
+    from repro_torch.core import BatchingConfig, ForecastConfig, FunctionSpec, Gateway
+    from repro_torch.core.boot import streamed_device_put
+    from repro_torch.core.forecast import LearnedForecaster, RateHistory
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.core.simclock import REAL
+    from repro_torch.kernels import ops
+
+    allocated0 = tensor_bytes(torch)
+    spec = FunctionSpec(**COALESCE_SPEC)   # phase 3's function, in an image of its own
+    work.mkdir(parents=True, exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    log(f"before deploy {spec.name}: {memory_line(torch, work)} | device memory allocated "
+        f"{allocated0} B")
+    gw = Gateway(n_hosts=2, slots_per_host=2, mode="cold", hedging=False,
+                 batching=BatchingConfig(buckets=COALESCE_BUCKETS,
+                                         min_window_s=COALESCE_WINDOW_S),
+                 forecast=ForecastConfig(**FORECAST_SPEC),
+                 scheduler=SchedulerConfig(snapshot_tier_bytes=4 << 30), work_dir=str(work),
+                 device=device)
+    batches, lock = [], threading.Lock()
+    handle_batch = gw.agent.handle_batch
+
+    def observed_batch(host, dep_, batch, driver_name, tl, *args, **kwargs):
+        out = handle_batch(host, dep_, batch, driver_name, tl, *args, **kwargs)
+        with lock:
+            batches.append({"host": host.host_id, "n": batch.n_requests,
+                            "bucket": batch.bucket, "padded_rows": batch.padded_rows,
+                            "tokens": batch.tokens, "tl": tl})
+        return out
+
+    gw.agent.handle_batch = observed_batch
+    try:
+        t0 = time.perf_counter()
+        dep = gw.deploy(spec)
+        cfg, name, m = dep.model.cfg, dep.name, dep.image.manifest
+        log(f"deploy {name} with buckets {COALESCE_BUCKETS}: {time.perf_counter() - t0:.1f} s "
+            f"[" + " ".join(f"{k} {v:.2f}" for k, v in dep.build_s.items()) + "]" +
+            f" | {m.param_count} params | snapshot {m.snapshot_bytes} B | {cfg.n_layers} layers "
+            f"{cfg.dtype} | {memory_line(torch, work)}")
+        want = {"flash_attention": cfg.n_layers,
+                "decode_attention": cfg.n_layers * spec.decode_steps,
+                "paged_decode_attention": 0, "mlstm": 0, "selective_scan": 0}
+        ops.reset_launch_counts()
+
+        # ---- the burst, then a pair: coalesced into bucket programs
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, (spec.batch_size, spec.prompt_len),
+                                dtype=np.int32) for _ in range(COALESCE_BURST + COALESCE_PAIR)]
+        outs = gw.invoke_many(name, prompts[:COALESCE_BURST], label="burst", timeout=900)
+        outs += gw.invoke_many(name, prompts[COALESCE_BURST:], label="pair", timeout=900)
+        burst_launches = ops.launch_counts()
+        for i, b in enumerate(batches):
+            tl = b["tl"]
+            stages = " ".join(f"{k} {v:.3f}" for k, v in tl.stage_s.items())
+            log(f"batch {i + 1}: {b['n']} requests in bucket {b['bucket']} ({b['padded_rows']} "
+                f"rows) on host {b['host']} | boot [{stages}] t_boot_wall {tl.t_boot_wall:.3f} "
+                f"s | execution {tl.execution:.3f} s")
+        summary = gw.batching_summary()
+        log(f"batching_summary: {json.dumps(summary)}")
+        n_req = COALESCE_BURST + COALESCE_PAIR
+        if summary["requests"] != n_req or not summary["batches"] < n_req:
+            raise AssertionError(f"coalescing did not engage: {summary}")
+        if sorted(b["padded_rows"] for b in batches) != [8, 16, 16]:
+            shapes = [(b["n"], b["padded_rows"]) for b in batches]
+            raise AssertionError(f"batch compositions {shapes}, expected two batches of 16 "
+                                 "rows and one of 8")
+        if {k: burst_launches[k] for k in want} != {k: v * len(batches) for k, v in want.items()}:
+            raise AssertionError(f"launches {burst_launches}, expected {want} per batch x "
+                                 f"{len(batches)}")
+        # every member's rows are the bucket program's rows for it
+        params = streamed_device_put(dep.snapshots.load_host(dep.image.key), device)
+        by_prompt = {p.tobytes(): o for p, o in zip(prompts, outs)}
+        with torch.inference_mode():
+            for b in batches:
+                program = dep.load_program(bucket_rows=b["padded_rows"])
+                direct = program(params, torch.from_numpy(b["tokens"]).to(device)).cpu().numpy()
+                for mi in range(b["n"]):
+                    r = slice(mi * spec.batch_size, (mi + 1) * spec.batch_size)
+                    got = by_prompt[b["tokens"][r].tobytes()]
+                    if got.shape != (spec.batch_size, spec.decode_steps) or \
+                            not np.array_equal(got, direct[r]):
+                        raise AssertionError("a member's tokens are not its rows of the bucket "
+                                             "program's output")
+        del params, program
+        agree = []
+        for i, p in enumerate(prompts):
+            single = np.asarray(gw.dispatcher.submit(dep, p, "unikernel",
+                                                     label="per-request").result(900))
+            agree.append(float((single == outs[i]).mean()))
+        log(f"members' tokens equal their rows of the bucket programs' outputs; token agreement "
+            f"with the per-request path (no gate, bf16 near-ties): {agree}")
+        launches = burst_launches
+        member_gates(torch, dep, batches, work, device)
+
+        # ---- the ramp, then quiet: forecast-driven pre-boots and cool-down
+        planner = gw.planner
+        offsets = ramp_times(RAMP_S, RAMP_RPS)
+        before = ops.launch_counts()
+        futs, t_start = [], time.perf_counter()
+        for off in offsets:
+            delay = t_start + off - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            futs.append(gw.invoke_async(name, prompts[len(futs) % len(prompts)], label="ramp"))
+        # at the last arrival the predicted rate is high: the cool-down that
+        # counts is one published after it
+        cooldowns0, target0 = planner.cooldowns, planner.pool_target(name)
+        t_last = time.perf_counter() - t_start
+        for f in futs:
+            f.result(900)
+        t_ramp = time.perf_counter() - t_start
+        t_quiet = time.perf_counter()
+        while time.perf_counter() - t_quiet < QUIET_WAIT_S and not (
+                planner.cooldowns > cooldowns0 and planner.parked_count() == 0):
+            time.sleep(0.1)
+        t_quiet = time.perf_counter() - t_quiet
+        after = ops.launch_counts()
+        launches = {k: launches[k] + after[k] - before[k] for k in launches}
+        tls = gw.recorder.timelines("ramp")
+        claimed = [tl for tl in tls if tl.planner_preboot]
+        fsum = gw.forecast_summary()
+        placement = gw.placement_summary()
+        def secs(values) -> str:
+            return ", ".join(f"{v:.3f}" for v in values)
+
+        log(f"ramp: {len(offsets)} requests, the last submitted at {t_last:.2f} s (pool target "
+            f"{target0}), all served at {t_ramp:.2f} s, rising {RAMP_RPS[0]} -> {RAMP_RPS[1]} rps "
+            f"| e2e {secs(tl.e2e for tl in tls)} s | {len(claimed)} rode a parked planner boot "
+            f"(startup {secs(tl.startup for tl in claimed[:8])} s; the parked boots' t_boot_wall "
+            f"{secs(tl.t_boot_wall for tl in claimed[:8])} s) | the others' startup "
+            f"{secs([tl.startup for tl in tls if not tl.planner_preboot][:8])} s | quiet "
+            f"{t_quiet:.2f} s until the cool-down | pool target {planner.pool_target(name)}")
+        log(f"forecast_summary: {json.dumps(fsum)} | prefetched per host " +
+            json.dumps({h: e["prefetched"] for h, e in placement["hosts"].items()}))
+        if not claimed:
+            raise AssertionError("no request rode a parked planner pre-boot")
+        if fsum["preboots_planned"] != fsum["preboots_claimed"] + fsum["preboots_expired"] + \
+                fsum["preboots_parked"]:
+            raise AssertionError(f"pre-boots leaked: {fsum}")
+        if not (target0 and planner.cooldowns > cooldowns0 and planner.pool_target(name) == 0):
+            raise AssertionError(f"no cool-down was published on quiet: {fsum}")
+        if not any(e["prefetched"] for e in placement["hosts"].values()):
+            raise AssertionError("the planner prefetched no host's program tier")
+    finally:
+        gw.agent.handle_batch = handle_batch
+
+    # ---- the learned forecaster, fitted on the card and on the CPU
+    fcfg = ForecastConfig(**{**FORECAST_SPEC, "model": "learned"})
+    X, y = rate_windows(np, fcfg.window, int(fcfg.horizon_s / fcfg.bucket_s))
+    held, Xt, yt = X[-64:], X[:-64], y[:-64]
+    fits = {}
+    for where in (device, "cpu"):
+        fc = LearnedForecaster(fcfg, RateHistory(fcfg, REAL), device=where)
+        t = time.perf_counter()
+        losses = fc.fit(Xt, yt, epochs=FIT_EPOCHS)
+        fits[where] = (losses, np.asarray([fc.predict_window(w) for w in held]),
+                        time.perf_counter() - t)
+        del fc
+    (lc, pc, tc), (lh, ph, th) = fits[device], fits["cpu"]
+    rel = float(np.max(np.abs(pc - ph) / np.maximum(np.abs(ph), 1e-6)))
+    log(f"learned forecaster: {len(Xt)} windows x {FIT_EPOCHS} epochs on the card in "
+        f"{tc:.2f} s (CPU {th:.2f} s) | loss {lc[0]:.4f} -> {lc[-1]:.4f} (CPU {lh[0]:.4f} -> "
+        f"{lh[-1]:.4f}) | held-out predictions {pc[:4].round(3).tolist()}... min "
+        f"{pc.min():.4f} | max relative difference from the CPU fit {rel:.3g} "
+        f"(gate {FIT_RTOL})")
+    if not (lc[-1] < lc[0] and (pc >= 0).all() and rel <= FIT_RTOL):
+        raise AssertionError("the learned forecaster's fit on the card failed its gates")
+
+    # ---- shutdown
+    gw.shutdown()
+    t_join = time.perf_counter()
+    while time.perf_counter() - t_join < 30:
+        alive = [t.name for t in threading.enumerate() if not t.daemon
+                 and t is not threading.main_thread()]
+        allocated1 = tensor_bytes(torch)
+        if not alive and abs(allocated1 - allocated0) <= MEMORY_SLACK:
+            break
+        time.sleep(0.1)
+    log(f"phase 3f gw.shutdown(): non-daemon threads left {alive} | parked "
+        f"{gw.planner.parked_count()} | device memory allocated before {allocated0} B, after "
+        f"{allocated1} B (allowed {MEMORY_SLACK} B) | launches {launches}")
+    if alive:
+        raise AssertionError(f"gw.shutdown() left non-daemon threads alive: {alive}")
+    if abs(allocated1 - allocated0) > MEMORY_SLACK:
+        raise AssertionError("phase 3f left device memory allocated")
+    return launches
+
+
 def register_jamba() -> None:
     from repro_torch.configs import get_config, register
     cfg = get_config("jamba-1.5-large-398b")
@@ -1238,6 +1640,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_run = time.perf_counter()
+
+    def phase_done(label: str) -> None:
+        log(f"{label} done: {time.perf_counter() - t_run:.1f} s into the run")
+
     # ---- phase 1: device and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True,
@@ -1268,8 +1675,14 @@ def main() -> int:
     jamba_flash = (4, 512, 512, 64, 8, 128, True, 0, "bfloat16")    # jamba's prefill, timed too
     jamba_decode = (4, 528, 64, 8, 128, [528] * 4, "bfloat16")      # jamba's decode, timed too
     flash_admit = (1, 512, 512, 24, 8, 128, True, 0, "bfloat16")    # the decode tier's admit, timed
+    # the coalesced path's bucket programs (phase 3f): 8 and 16 rows, the
+    # largest timed
+    flash_bucket = (16, 512, 512, 24, 8, 128, True, 0, "bfloat16")
+    decode_bucket = (16, 528, 24, 8, 128, [528] * 16, "bfloat16")
     flash_cases = [flash_main,
                    flash_admit,
+                   flash_bucket,
+                   (8, 512, 512, 24, 8, 128, True, 0, "bfloat16"),
                    (2, 77, 77, 24, 8, 128, True, 0, "bfloat16"),      # ragged
                    (2, 64, 192, 24, 8, 128, True, 128, "bfloat16"),   # q_offset
                    (2, 128, 128, 24, 8, 128, False, 0, "bfloat16"),   # bidirectional
@@ -1290,6 +1703,8 @@ def main() -> int:
                    (2, 77, 77, 4, 2, 32, True, 0, "bfloat16")]
     decode_main = (4, 528, 24, 8, 128, [528, 528, 528, 528], "bfloat16")
     decode_cases = [decode_main,
+                    decode_bucket,
+                    (8, 528, 24, 8, 128, [528] * 8, "bfloat16"),
                     (4, 528, 24, 8, 128, [0, 528, 300, 517], "bfloat16"),
                     (3, 100, 4, 4, 32, [1, 0, 100], "bfloat16"),
                     (2, 264, 24, 8, 128, [1, 200], "float32"),
@@ -1359,8 +1774,10 @@ def main() -> int:
         "to encode q, k, v (mean of 1000)")
     del qm, km
     timed_extra = {id(jamba_flash): "jamba's shape", id(jamba_decode): "jamba's shape",
-                   id(flash_admit): "the decode tier's admit shape"}
-    results = {}
+                   id(flash_admit): "the decode tier's admit shape",
+                   id(flash_bucket): "the 16-row bucket's shape",
+                   id(decode_bucket): "the 16-row bucket's shape"}
+    results, bucket_rows = {}, {}
     for name, check, cases in (
             ("flash_attention",
              lambda c, t: check_flash(torch, F, fa, ref, gen, c, t), flash_cases),
@@ -1399,9 +1816,16 @@ def main() -> int:
         if bad:
             raise AssertionError(f"{name} disagrees with its plain version on {bad}")
         results[name] = main
+        for c, r in zip(cases, rows):
+            if c is flash_bucket or c is decode_bucket:
+                bucket_rows[name] = {k: r[k] for k in (
+                    "case", "max_abs_err", "ms", "device_ms", "host_us", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_device_ms")}
 
-    register(LLAMA_ARCH)(lambda: dataclasses.replace(get_config("llama3.2-3b"),
-                                                     n_layers=LLAMA_LAYERS))
+    phase_done("phase 2")
+    for arch, layers in ((LLAMA_ARCH, LLAMA_LAYERS), (COALESCE_ARCH, COALESCE_LAYERS)):
+        register(arch)(lambda layers=layers: dataclasses.replace(get_config("llama3.2-3b"),
+                                                                 n_layers=layers))
     xlstm = get_config("xlstm-1.3b")
     register(XLSTM_ARCH)(lambda: dataclasses.replace(
         xlstm, n_layers=XLSTM_PERIODS * xlstm.ssm.slstm_every))
@@ -1410,14 +1834,24 @@ def main() -> int:
     try:
         # ---- phase 3: the llama serve path, full width, through the Gateway
         gw, dep, launches, first_tokens = gateway_path(torch, SPEC, work / "llama")
+        phase_done("phase 3")
         # ---- phase 3b: the decode tier on the same deployment, same Gateway
         launches_3b = decode_tier(torch, gw, dep)
+        phase_done("phase 3b")
         # ---- phase 3e: every driver on the same deployment, then warm mode
         launches_3e = driver_taxonomy(torch, gw, dep, first_tokens)
+        phase_done("phase 3e")
         del gw, dep
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(work / "llama", ignore_errors=True)
+
+        # ---- phase 3f: coalescing and forecast-driven pre-boot, 2 of 28 layers
+        launches_3f = coalesced_path(torch, work / "coalesced")
+        phase_done("phase 3f")
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(work / "coalesced", ignore_errors=True)
 
         # ---- phase 3c: the xlstm serve path, full width, 1 of 6 periods
         _, launches_3c = serve_path(
@@ -1429,10 +1863,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(work / "xlstm", ignore_errors=True)
+        phase_done("phase 3c")
 
         # ---- phase 3d: the jamba serve path, full width, one period
         _, launches_3d = serve_path(
             torch, FunctionSpec(**JAMBA_SPEC), work / "jamba", JAMBA_REQUESTS, jamba_launches)
+        phase_done("phase 3d")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1451,8 +1887,8 @@ def main() -> int:
     kernels = []
     for name, r in results.items():
         by_path = {"serve": launches[name], "decode_tier": launches_3b[name],
-                   "driver_taxonomy": launches_3e[name], "xlstm_serve": launches_3c[name],
-                   "jamba_serve": launches_3d[name]}
+                   "driver_taxonomy": launches_3e[name], "coalesced": launches_3f[name],
+                   "xlstm_serve": launches_3c[name], "jamba_serve": launches_3d[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
@@ -1463,6 +1899,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "library_device_ms": r["library_device_ms"]})
+        if name in bucket_rows:
+            kernels[-1]["at_bucket_16"] = bucket_rows[name]
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -76,10 +76,10 @@ class WarmPoolAutoscaler:
         self.idle_timeout_s = idle_timeout_s
         self.headroom = headroom
         self.max_pool = max_pool
-        # a pre-boot planner (the forecast slice, ROADMAP A7; None until
-        # then): when set, its published pool targets REPLACE the reactive
-        # Little's-law + idle-timeout math — including target zero (full
-        # cooldown) the moment the forecast says traffic is gone
+        # a PreBootPlanner (repro_torch.core.forecast): when set, its
+        # published pool targets REPLACE the reactive Little's-law +
+        # idle-timeout math — including target zero (full cooldown) the
+        # moment the forecast says traffic is gone
         self.planner = planner
         self._clock = clock if clock is not None else metrics.get_clock()
         self._now = self._clock.now

@@ -88,9 +88,13 @@ class BootCancelled(RuntimeError):
 class BootContext:
     """Mutable scratch space a plan's stages fill in as the boot progresses."""
 
-    def __init__(self, dep, driver_name: str, host=None) -> None:
+    def __init__(self, dep, driver_name: str, bucket_rows: Optional[int] = None,
+                 host=None) -> None:
         self.dep = dep
         self.driver_name = driver_name
+        # token rows of a coalesced batch's bucket program (None: the deploy
+        # shape); the program stages fetch, load or trace at this shape
+        self.bucket_rows = bucket_rows
         # the Host this boot runs on (None for host-less boots); fetch stages
         # consult host.cache — the tiered RAM cache of
         # repro_torch.core.scheduler — before the global stores
@@ -161,10 +165,10 @@ class FetchProgram(Stage):
 
     # which artifact to fetch — FetchProgramHead points these at the head
     def _key(self, ctx: BootContext) -> str:
-        return ctx.dep.program_key()
+        return ctx.dep.program_key(ctx.bucket_rows)
 
     def _payload(self, ctx: BootContext) -> bytes:
-        return ctx.dep.fetch_program_payload()
+        return ctx.dep.fetch_program_payload(ctx.bucket_rows)
 
     def run(self, ctx: BootContext) -> None:
         cache = getattr(ctx.host, "cache", None)
@@ -211,7 +215,10 @@ class FetchProgramHead(FetchProgram):
         return ctx.dep.fetch_head_payload() if self._split else super()._payload(ctx)
 
     def run(self, ctx: BootContext) -> None:
-        self._split = bool(getattr(ctx.dep, "split_ok", False))
+        dep = ctx.dep
+        # a bucket program has no published split
+        self._split = bool(getattr(dep, "split_ok", False)) \
+            and ctx.bucket_rows in (None, dep.base_rows)
         if not self._split:
             super().run(ctx)
             return
@@ -271,8 +278,8 @@ class TraceCompile(Stage):
             params = pytree.tree_map(
                 lambda s: torch.empty(s.shape, dtype=s.dtype, device=dep.device),
                 dep.abstract_params())
-            tokens = torch.empty((dep.base_rows, dep.spec.prompt_len), dtype=torch.int32,
-                                 device=dep.device)
+            tokens = torch.empty(dep.abstract_tokens_for(ctx.bucket_rows),
+                                 dtype=torch.int32, device=dep.device)
         fresh = type(dep.serve_fn)(dep.model, dep.spec)     # a new module: a new trace
         ctx.program = slim(torch.export.export(fresh, (params, tokens))).module()
 
@@ -869,9 +876,10 @@ class BootEngine:
     """Executes BootPlans: concurrent tracks, per-stage timing, cancellation."""
 
     def execute(self, plan: BootPlan, dep, tl: Timeline, driver_name: str,
-                host=None) -> Executor:
+                bucket_rows: Optional[int] = None, host=None) -> Executor:
         """Synchronous boot: run the plan, stamp ``tl``, return the executor."""
-        result = self._run(plan, dep, driver_name, cancel=None, host=host,
+        result = self._run(plan, dep, driver_name, cancel=None,
+                           bucket_rows=bucket_rows, host=host,
                            deadline=getattr(tl, "deadline", None))
         tl.record_boot(result.stage_s, result.wall_s,
                        bytes_fetched=result.bytes_fetched,
@@ -881,14 +889,16 @@ class BootEngine:
                        chunks_refetched=result.chunks_refetched)
         return result.executor
 
-    def launch(self, plan: BootPlan, dep, driver_name: str, host=None) -> BootHandle:
+    def launch(self, plan: BootPlan, dep, driver_name: str,
+               bucket_rows: Optional[int] = None, host=None) -> BootHandle:
         """Speculative pre-boot: run the plan on a background thread."""
         handle = BootHandle(dep, driver_name)
 
         def run() -> None:
             try:
                 result = self._run(plan, dep, driver_name, cancel=handle._cancel,
-                                   host=host, on_stage=handle._note_stage)
+                                   bucket_rows=bucket_rows, host=host,
+                                   on_stage=handle._note_stage)
             except BaseException as e:  # noqa: BLE001 - relayed via claim()
                 handle._finish(None, e)
             else:
@@ -899,9 +909,9 @@ class BootEngine:
 
     # ------------------------------------------------------------- internal
     def _run(self, plan: BootPlan, dep, driver_name: str,
-             cancel: Optional[threading.Event], host=None, deadline=None,
-             on_stage=None) -> BootResult:
-        ctx = BootContext(dep, driver_name, host=host)
+             cancel: Optional[threading.Event], bucket_rows: Optional[int] = None,
+             host=None, deadline=None, on_stage=None) -> BootResult:
+        ctx = BootContext(dep, driver_name, bucket_rows=bucket_rows, host=host)
         ctx.cancel = cancel
         ctx.deadline = deadline
         stage_s: Dict[str, float] = {}

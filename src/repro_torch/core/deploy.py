@@ -28,7 +28,13 @@ drivers once per deployment, when the first such boot plans (the JAX package
 writes it in ``deploy``; at jamba's size it is a 65 GB float32 file, so the
 port writes it only for a deployment that is booted that way).
 
-Shape buckets (the coalescer's programs) come with the batching slice.
+``Deployment.ensure_bucket`` builds the coalescer's bucket program for a
+batch of ``rows`` token rows (``repro_torch.core.batching``), once per
+bucket, under the same export -> save -> load -> verify rule; it is keyed by
+``bucket_image_key`` and has no head/tail split. ``ensure_buckets`` builds
+several, restoring the snapshot's weights to the device once for all. The JAX package's
+in-process fallback for a bucket its loader refuses is not ported: a bucket
+that fails to export, load or verify raises.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ import dataclasses
 import operator
 import threading
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +57,7 @@ from repro_torch.core.compile_cache import (
 )
 from repro_torch.core.executor import synchronize
 from repro_torch.core.metrics import now
+from repro_torch.core.scheduler import program_artifact_key
 from repro_torch.core.snapshot import SnapshotStore, save_generic_checkpoint
 from repro_torch.models import build_model
 from repro_torch.models.model import Model
@@ -324,6 +331,12 @@ class Deployment:
     _decode_bundle: Optional[DecodeBundle] = dataclasses.field(default=None, repr=False)
     _generic_lock: threading.Lock = dataclasses.field(default_factory=threading.Lock,
                                                       repr=False)
+    # shape-bucket program registry (repro_torch.core.batching): the token-row
+    # counts whose program is saved and verified (build_s has the seconds of
+    # each one's stages as ``bucket<rows>_<stage>``)
+    _buckets: set = dataclasses.field(default_factory=set, repr=False)
+    _bucket_lock: threading.Lock = dataclasses.field(default_factory=threading.Lock,
+                                                     repr=False)
 
     @property
     def name(self) -> str:
@@ -340,17 +353,103 @@ class Deployment:
         re-trace runs on."""
         return self.model.param_specs()
 
-    def program_key(self) -> str:
-        """Registry/cache key of the program artifact."""
-        return self.image.key
+    def bucket_image_key(self, rows: int) -> str:
+        # single source of truth with the scheduler's affinity keys: routing
+        # probes and tier inserts must agree on this exact string
+        return program_artifact_key(self.image.key, rows)
 
-    def load_program(self) -> Callable:
+    def abstract_tokens_for(self, rows: Optional[int]) -> Tuple[int, int]:
+        """The int32 token shape of a program at ``rows`` token rows (None:
+        the deploy-time request shape)."""
+        return (self.base_rows if rows is None else rows, self.spec.prompt_len)
+
+    def ensure_bucket(self, rows: int) -> None:
+        """Export, save, load and verify the serve program for a coalesced
+        batch of ``rows`` token rows.
+
+        One build per bucket, ever — every later batch rounded to this bucket
+        boots the saved program exactly like the base one. The program is
+        exported with ``torch.export`` at ``[rows, prompt_len]`` on the
+        snapshot's weights, saved under ``bucket_image_key(rows)``, loaded
+        back, and run beside the eager program on seeded probe tokens; a
+        difference raises, and nothing is registered.
+        """
+        self.ensure_buckets((rows,))
+
+    def ensure_buckets(self, rows: Iterable[int]) -> None:
+        """``ensure_bucket`` for each of ``rows``, with the snapshot's weights
+        restored to the device once for all the buckets still to build
+        (``build_s["buckets_restore"]``) and released after."""
+        with self._bucket_lock:
+            todo = [r for r in dict.fromkeys(rows)
+                    if r != self.base_rows and r not in self._buckets]
+            if not todo:
+                return
+            t = now()
+            params = streamed_device_put(self.snapshots.load_host(self.image.key), self.device)
+            self.build_s["buckets_restore"] = now() - t
+            for r in todo:
+                self._build_bucket(r, params)
+                self._buckets.add(r)
+
+    def _build_bucket(self, rows: int, params) -> None:
+        t = now()
+
+        def lap(stage: str) -> None:
+            nonlocal t
+            t1 = now()
+            self.build_s[f"bucket{rows}_{stage}"] = t1 - t
+            t = t1
+
+        dev, key = self.device, self.bucket_image_key(rows)
+        rng = np.random.default_rng(rows)
+        probe = torch.from_numpy(rng.integers(0, self.model.cfg.vocab_size,
+                                              self.abstract_tokens_for(rows),
+                                              dtype=np.int32)).to(dev)
+        fn = make_serve_fn(self.model, self.spec)
+        exported = slim(torch.export.export(fn, (params, probe)))
+        lap("export")
+        self.cache.put_program(key, exported)
+        del exported
+        lap("save")
+        program = self.cache.load_program(key)
+        lap("load")
+        with torch.inference_mode():
+            booted = program(params, probe)
+            eager = fn(params, probe)
+        synchronize(dev)
+        if booted.shape != eager.shape or not torch.equal(booted, eager):
+            self.cache.evict(key)
+            raise RuntimeError(
+                f"ensure_bucket {self.name}: the saved {rows}-row program's tokens differ "
+                "from the eager program's on probe tokens")
+        lap("verify")
+
+    def _require_bucket(self, bucket_rows: Optional[int]) -> None:
+        if bucket_rows is None or bucket_rows == self.base_rows:
+            return
+        with self._bucket_lock:
+            if bucket_rows not in self._buckets:
+                raise KeyError(f"bucket {bucket_rows} not built for {self.name}; "
+                               "call Deployment.ensure_bucket first")
+
+    def program_key(self, bucket_rows: Optional[int] = None) -> str:
+        """Registry/cache key of the program artifact for a request shape —
+        the unit of placement affinity (repro_torch.core.scheduler) and of
+        the per-host program tier."""
+        if bucket_rows is None or bucket_rows == self.base_rows:
+            return self.image.key
+        return self.bucket_image_key(bucket_rows)
+
+    def load_program(self, bucket_rows: Optional[int] = None) -> Callable:
         """The unikernel 'boot': deserialize the program from the image registry."""
-        return self.cache.load_program(self.program_key())
+        self._require_bucket(bucket_rows)
+        return self.cache.load_program(self.program_key(bucket_rows))
 
-    def fetch_program_payload(self) -> bytes:
+    def fetch_program_payload(self, bucket_rows: Optional[int] = None) -> bytes:
         """Serialized-program bytes for the boot pipeline's FetchProgram stage."""
-        return self.cache.read_program_bytes(self.program_key())
+        self._require_bucket(bucket_rows)
+        return self.cache.read_program_bytes(self.program_key(bucket_rows))
 
     def head_program_key(self) -> str:
         return head_key(self.image.key)

@@ -1,15 +1,14 @@
 """Dispatcher: routing, retry-on-host-failure, and hedged straggler mitigation.
 
-Port of ``repro.core.dispatcher``. ``submit_batch`` (one coalesced batch as
-one unit) comes with the coalescer, and the forecast planner's parked boots
-with the forecast slice.
+Port of ``repro.core.dispatcher``.
 
 The cold-only simplification shows up here concretely: there is no warm-affinity
 table and no per-function load monitor — any alive host can take any request, so
 routing is just least-loaded. What remains is what any large fleet needs:
 
 * retry: HostFailure -> re-dispatch to another host (stateless executors make this
-  always-safe). Retries are resilience-governed
+  always-safe); a coalesced batch retries as ONE unit, so every member request is
+  re-dispatched exactly once per attempt. Retries are resilience-governed
   (:mod:`repro_torch.core.resilience`): exponential backoff + jitter on the shared
   timer, a token-bucket retry budget that bounds attempt amplification under
   fleet-wide failure, per-host circuit breakers fed from attempt outcomes (the
@@ -42,7 +41,7 @@ from typing import Dict, Optional
 
 from repro_torch.core import metrics
 from repro_torch.core.agent import Agent
-from repro_torch.core.batching import settle_quietly as _settle
+from repro_torch.core.batching import CoalescedBatch, settle_quietly as _settle
 from repro_torch.core.cluster import Cluster, HostFailure
 from repro_torch.core.deploy import Deployment
 from repro_torch.core.metrics import P2Quantile, Timeline
@@ -112,7 +111,7 @@ class Dispatcher:
         self.preboots_launched = 0
         self.retries = 0
         self.retries_denied = 0        # budget/deadline refused a retry
-        self.submitted = 0             # requests accepted
+        self.submitted = 0             # requests (or batches) accepted
         self.attempts = 0              # attempts actually dispatched to a host
         self._lock = threading.Lock()
         self._hedge_timer = DeadlineTimer("dispatcher-hedge-timer",
@@ -136,9 +135,16 @@ class Dispatcher:
             if hasattr(cluster, "scheduler") else None
         if self._breakers is not None:
             self._breakers.bind_clock(self._clock)
+        # a PreBootPlanner (repro_torch.core.forecast) parks forecast-driven
+        # boots per (host, image); when set, _attempt claims a parked boot
+        # before launching its own request-triggered speculation — a request
+        # landing where the planner already warmed rides the planner's boot
+        self.planner = None
+
     @property
     def timer(self) -> DeadlineTimer:
-        """The shared deadline timer (hedge deadlines, retry backoffs)."""
+        """The shared deadline timer (hedge deadlines, retry backoffs — and
+        the forecast planner's tick, which rides the same thread)."""
         return self._hedge_timer
 
     # ------------------------------------------------------------------ public
@@ -167,20 +173,48 @@ class Dispatcher:
                       label=label, allow_hedge=hedge_ok, speculative=spec)
         return result
 
+    def submit_batch(self, dep: Deployment, batch: CoalescedBatch,
+                     driver_name: str, label: Optional[str] = None,
+                     speculative: Optional[bool] = None,
+                     deadline: Optional[Deadline] = None,
+                     hedging: Optional[bool] = None) -> Future:
+        """Dispatch one coalesced batch as a single unit.
+
+        The batch rides the exact retry/hedge machinery of ``submit`` — a
+        transient failure re-dispatches the whole batch (every member exactly
+        once per attempt), a straggling batch gets one hedged backup — and the
+        Future resolves to the stacked result rows; the coalescer fans them
+        back out to the per-request Futures.
+        """
+        result: Future = Future()
+        tl = Timeline(t_enqueue=batch.t_earliest)
+        tl.deadline = deadline
+        spec = self.speculative if speculative is None else speculative
+        hedge_ok = self.hedging if hedging is None else hedging
+        with self._lock:
+            self.submitted += 1
+        self.retry_budget.deposit()
+        self._attempt(result, dep, batch, driver_name, tl, tried=set(), n_try=0,
+                      label=label, allow_hedge=hedge_ok, speculative=spec)
+        return result
+
     def close(self) -> None:
         """Stop the shared hedge-timer thread (gateway shutdown)."""
         self._hedge_timer.close()
 
     # ---------------------------------------------------------------- internal
-    def _preboot(self, host, dep, driver_name: str):
-        """Start a speculative boot for a request headed to ``host``, if the
-        agent and driver support it. A failure to start one is not the
-        request's failure: the request boots on its own path instead."""
+    def _preboot(self, host, dep, driver_name: str,
+                 bucket_rows: Optional[int] = None):
+        """Start a speculative boot for a request (or a batch, at its bucket
+        shape) headed to ``host``, if the agent and driver support it. A
+        failure to start one is not the request's failure: the request boots
+        on its own path instead."""
         pre_fn = getattr(self.agent, "preboot", None)
         if pre_fn is None:
             return None
         try:
-            handle = pre_fn(host, dep, driver_name)
+            handle = pre_fn(host, dep, driver_name, bucket_rows=bucket_rows) \
+                if bucket_rows is not None else pre_fn(host, dep, driver_name)
         except Exception:
             return None
         if handle is not None:
@@ -250,7 +284,8 @@ class Dispatcher:
         """Dispatch one attempt; returns True if work was actually submitted.
 
         Placement is affinity-aware: the cluster routes on the deployment's
-        program artifact key so boots land where the bytes already are. ``tried`` excludes hosts this request already
+        program artifact key (and the batch's bucket shape) so boots land where
+        the bytes already are. ``tried`` excludes hosts this request already
         ran on — retries re-route elsewhere, and a hedge (``hedge=True``) is
         strict about it: with no distinct host alive it silently stands down
         rather than racing the straggler on its own machine.
@@ -264,7 +299,14 @@ class Dispatcher:
             _settle(result, error=DeadlineExceeded(
                 f"deadline passed before attempt {n_try}"))
             return False
+        batch = tokens if isinstance(tokens, CoalescedBatch) else None
         key = f"{dep.name if dep else 'noop'}:{driver_name}"
+        if batch is not None:
+            key += f":b{batch.bucket}"      # service time scales with the bucket
+        bucket_rows = None
+        if batch is not None and dep is not None \
+                and batch.padded_rows != dep.base_rows:
+            bucket_rows = batch.padded_rows
         image = getattr(dep, "image", None)      # noop probes / test stand-ins
         try:
             with self._lock:
@@ -275,7 +317,7 @@ class Dispatcher:
                 # sets here used to let a late hedge land on a retry's host
                 host = self.cluster.route(
                     image.key if image is not None else None,
-                    exclude=tried, strict=hedge)
+                    bucket_rows=bucket_rows, exclude=tried, strict=hedge)
                 tried.add(host.host_id)
         except HostFailure as e:
             if hedge:
@@ -284,15 +326,27 @@ class Dispatcher:
             return False
 
         preboot = None
-        if speculative and dep is not None:
-            preboot = self._preboot(host, dep, driver_name)
+        if self.planner is not None and image is not None and bucket_rows is None:
+            # forecast fast path: a parked planner boot for this (host, image)
+            # beats starting our own — the boot has a head start of up to one
+            # planning horizon
+            preboot = self.planner.claim(host.host_id, image.key)
+            if preboot is not None:
+                tl.planner_preboot = True
+        if preboot is None and speculative and dep is not None:
+            preboot = self._preboot(
+                host, dep, driver_name,
+                bucket_rows=batch.padded_rows if batch is not None else None)
         if preboot is not None:
             # whichever attempt settles the request first, an unclaimed
             # speculative boot must die with its executor
             result.add_done_callback(lambda _f: preboot.cancel())
 
         def work():
-            if preboot is None:
+            if batch is not None:
+                out = self.agent.handle_batch(host, dep, batch, driver_name, tl,
+                                              label, preboot=preboot)
+            elif preboot is None:
                 out = self.agent.handle(host, dep, tokens, driver_name, tl, label)
             else:
                 out = self.agent.handle(host, dep, tokens, driver_name, tl, label,

@@ -69,10 +69,12 @@ class Driver:
         """Declare this driver's start path as a BootPlan."""
         raise NotImplementedError
 
-    def start(self, dep: Deployment, tl: Timeline) -> Executor:
-        """The one start body shared by every driver: execute the declaration."""
+    def start(self, dep: Deployment, tl: Timeline,
+              bucket_rows: Optional[int] = None) -> Executor:
+        """The one start body shared by every driver: execute the declaration
+        (at a coalesced batch's bucket shape when ``bucket_rows`` is given)."""
         return self.engine.execute(self.plan(dep), dep, tl, driver_name=self.name,
-                                   host=self.host)
+                                   bucket_rows=bucket_rows, host=self.host)
 
     def finish(self, dep: Deployment, ex: Executor) -> None:
         """Post-request lifecycle. Cold drivers exit; pool drivers return."""

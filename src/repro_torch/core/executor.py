@@ -322,6 +322,21 @@ class Executor:
             self._end(t0)
         return out
 
+    def run_batch(self, tokens: torch.Tensor, valid_rows: Optional[int] = None,
+                  timeline=None) -> torch.Tensor:
+        """Run a padded coalesced batch and drop the padding rows.
+
+        The executor's program was exported at the batch's bucket shape; the
+        caller stacked ``valid_rows`` real request rows and padded the rest.
+        The padding mask is the row slice ``[:valid_rows]`` — batch rows are
+        independent (attention is within-sequence), so padding rows cannot
+        contaminate real ones and are simply discarded here.
+        """
+        out = self.run(tokens, timeline=timeline)
+        if valid_rows is not None:
+            out = out[:valid_rows]
+        return out
+
     def run_decode(self, fn: Callable, *args, timeline=None) -> Any:
         """Run a decode-bundle program (admit or step) on this executor's
         weights and wait for the device.

@@ -1,8 +1,7 @@
 """Locality-aware placement: rendezvous hashing + tiered per-host artifact caches.
 
 Copy of ``repro.core.scheduler``; the program tier's loaded memo is a
-``torch.export`` module here (see :class:`ProgramArtifact`). The forecast
-planner's ``prefetch_program`` comes with the forecast slice.
+``torch.export`` module here (see :class:`ProgramArtifact`).
 
 The cold-only design makes every request pay a full boot — which is exactly why
 *where* the boot runs starts to matter at fleet scale. "How Low Can You Go?"
@@ -315,6 +314,7 @@ class HostArtifactCache:
         self._lock = threading.Lock()
         self.peer_fetches = 0
         self.store_fetches = 0
+        self.prefetched = 0             # planner-driven warm-ahead inserts
         self.peer_serves = 0            # reads served TO other hosts
         self.bytes_from_peer = 0
         self.bytes_from_store = 0
@@ -371,6 +371,19 @@ class HostArtifactCache:
             raise ValueError("snapshot chunks register via delta_restore")
         if self.programs.put(key, value, nbytes):
             self.directory.publish(tier, key, self.host_id)
+
+    def prefetch_program(self, key: str, value: Any, nbytes: int) -> bool:
+        """Planner-driven warm-ahead: land a program artifact in this tier
+        BEFORE any request routes here. A no-op when the key is already
+        resident (probe only — hit/miss counters don't move); otherwise
+        accounted exactly like a store fetch (the bytes really ship from the
+        registry), plus the ``prefetched`` counter."""
+        if self.programs.contains(key):
+            return False
+        with self._lock:
+            self.prefetched += 1
+        self.fetch_from_store(PROGRAM_TIER, key, value, nbytes)
+        return True
 
     # ------------------------------------------------------------ chunk side
     def fetch_chunks_from_peer(self, key: str,
@@ -436,6 +449,7 @@ class HostArtifactCache:
             bytes_from_store = self.bytes_from_store
             partial_restores = self.partial_restores
             partial_in_flight = len(self._partial)
+            prefetched = self.prefetched
         return {
             "program": self.programs.stats(),
             "snapshot": self.snapshots.stats(),
@@ -446,6 +460,7 @@ class HostArtifactCache:
             "bytes_from_store": bytes_from_store,
             "partial_restores": partial_restores,
             "partial_in_flight": partial_in_flight,
+            "prefetched": prefetched,
         }
 
 
@@ -632,6 +647,7 @@ class Scheduler:
         bytes_from_peer = bytes_from_store = 0
         bytes_deduped = 0
         partial_restores = partial_in_flight = 0
+        prefetched = 0
         for h in self.cluster.hosts:
             cache = getattr(h, "cache", None)
             if cache is None:
@@ -650,6 +666,7 @@ class Scheduler:
             bytes_deduped += int(s["snapshot"].get("bytes_deduped", 0))
             partial_restores += s["partial_restores"]
             partial_in_flight += s["partial_in_flight"]
+            prefetched += s.get("prefetched", 0)
         with self._lock:
             routed, affinity_routed = self.routed, self.affinity_routed
             quarantine_skips = self.quarantine_skips
@@ -666,6 +683,7 @@ class Scheduler:
             "bytes_deduped": bytes_deduped,
             "partial_restores": partial_restores,
             "partial_in_flight": partial_in_flight,
+            "prefetched": prefetched,
             "routed": routed,
             "affinity_routed": affinity_routed,
             "quarantine_skips": quarantine_skips,

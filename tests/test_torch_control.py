@@ -241,12 +241,11 @@ def _routes(pkg):
         out.append([c.route(k, exclude={0, 1}).host_id for k in keys])
         with pytest.raises(pkg.failure):
             c.route(keys[0], exclude={0, 1, 2, 3}, strict=True)
-        # the JAX summaries also count the forecast planner's prefetches and
-        # the streamed restores, which the port does not have yet
-        streamed = ("partial_restores", "partial_in_flight", "prefetched")
-        s = {k: v for k, v in c.scheduler.summary().items() if k not in streamed}
+        # every counter, the streamed restores' and the forecast planner's
+        # prefetches included; only the hosts' live load is left out
+        s = c.scheduler.summary()
         for hid, h in s["hosts"].items():
-            s["hosts"][hid] = {k: v for k, v in h.items() if k not in streamed + ("load",)}
+            s["hosts"][hid] = {k: v for k, v in h.items() if k != "load"}
         out.append(s)
     finally:
         gate.set()

@@ -59,6 +59,15 @@ def _register_f32_arch():
             reg.register(F32_ARCH)(lambda base=base: dataclasses.replace(base, dtype="float32"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _registered_arch_leaves_with_the_module():
+    """The JAX package's config tests count the registered archs: the arch
+    this module registers leaves both registries when the module ends."""
+    yield
+    for reg in (jax_configs, torch_configs):
+        reg._REGISTRY.pop(F32_ARCH, None)
+
+
 @pytest.fixture(scope="module")
 def deps(tmp_path_factory):
     """The JAX and the port deployment of one reduced f32 spec; the port's

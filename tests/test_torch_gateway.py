@@ -16,8 +16,10 @@ same):
 * cold residency leaves idle byte-seconds ~0 (checked where no decode tier
   holds an executor between requests); speculative pre-boots are claimed;
   ``shutdown`` leaves no thread behind;
-* ``batching`` and ``forecast`` raise ``NotImplementedError`` (``mode="warm"``
-  is ported: ``tests/test_torch_drivers.py`` holds it), and the default
+* ``batching`` and ``forecast`` build the coalescer and the planner with
+  the JAX package's defaults (``tests/test_torch_batching.py`` and
+  ``tests/test_torch_forecast.py`` hold them to JAX; ``mode="warm"``:
+  ``tests/test_torch_drivers.py``), an unknown mode raises, and the default
   device is the GPU, with no fallback to the CPU.
 """
 import dataclasses
@@ -50,6 +52,15 @@ def _register_f32_arch():
         base = reg.get_config("llama3.2-3b")
         if F32_ARCH not in reg._REGISTRY:
             reg.register(F32_ARCH)(lambda base=base: dataclasses.replace(base, dtype="float32"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _registered_arch_leaves_with_the_module():
+    """The JAX package's config tests count the registered archs: the arch
+    this module registers leaves both registries when the module ends."""
+    yield
+    for reg in (jax_configs, torch_configs):
+        reg._REGISTRY.pop(F32_ARCH, None)
 
 
 def _pair(root, scheduler=None, decode=False, **kw):
@@ -242,8 +253,24 @@ def test_shutdown_leaves_no_thread_behind(tmp_path):
 
 @pytest.mark.parametrize("kw, item", [({"batching": True}, "A4c"), ({"forecast": True}, "A7")])
 def test_unported_modes_raise_naming_the_roadmap_item(tmp_path, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Gateway(work_dir=str(tmp_path), device="cpu", **kw)
+    """The modes ROADMAP ``item`` ported (they raised until then) now build
+    their component with the JAX Gateway's default configuration; an unknown
+    mode still raises."""
+    gw = Gateway(work_dir=str(tmp_path), device="cpu", **kw)
+    jgw = JaxGateway(work_dir=str(tmp_path / "jax"), **kw)
+    try:
+        if item == "A4c":
+            assert gw.planner is None and gw.forecast_summary() is None
+            assert dataclasses.asdict(gw.coalescer.cfg) == dataclasses.asdict(jgw.coalescer.cfg)
+            assert gw.batching_summary()["requests"] == 0.0
+        else:
+            assert gw.coalescer is None and gw.batching_summary() is None
+            assert gw.dispatcher.planner is gw.planner
+            assert dataclasses.asdict(gw.forecast_cfg) == dataclasses.asdict(jgw.forecast_cfg)
+            assert gw.forecast_summary()["model"] == jgw.forecast_summary()["model"] == "ewma"
+    finally:
+        gw.shutdown()
+        jgw.shutdown()
     with pytest.raises(ValueError):
         Gateway(mode="lukewarm", work_dir=str(tmp_path), device="cpu")
 

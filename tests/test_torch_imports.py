@@ -39,13 +39,18 @@ def test_port_sources_were_found():
             "selective_scan.py", "moe.py", "jamba_1_5_large_398b.py", "gateway.py",
             "dispatcher.py", "agent.py", "timerwheel.py", "blobstore.py", "autoscaler.py",
             "batching.py", "drivers.py", "executor.py", "snapshot.py",
-            "compile_cache.py"} <= names
+            "compile_cache.py", "forecast.py"} <= names
+    # a counterpart of every module of the JAX package's core
+    jax_core = {p.name for p in (ROOT / "src" / "repro" / "core").glob("*.py")}
+    port_core = {p.name for p in (ROOT / "src" / "repro_torch" / "core").glob("*.py")}
+    assert jax_core <= port_core, sorted(jax_core - port_core)
 
 
 def test_importing_the_port_builds_nothing_and_loads_no_jax():
     code = ("import sys; import repro_torch.kernels.ops, repro_torch.core.drivers, "
             "repro_torch.core.decode, repro_torch.core.cluster, repro_torch.core.gateway, "
-            "repro_torch.core.autoscaler, repro_torch.core.boot, repro_torch.core.executor; "
+            "repro_torch.core.autoscaler, repro_torch.core.boot, repro_torch.core.executor, "
+            "repro_torch.core.batching, repro_torch.core.forecast; "
             "from repro_torch.core import FunctionSpec, Gateway; "
             "from repro_torch.kernels import _cuda; "
             "assert _cuda._lib is None; "

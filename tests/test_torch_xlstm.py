@@ -64,6 +64,15 @@ def _register_x4_arch():
                 base, n_layers=4, dtype="float32"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _registered_arch_leaves_with_the_module():
+    """The JAX package's config tests count the registered archs: the arch
+    this module registers leaves both registries when the module ends."""
+    yield
+    for reg in (jax_configs, torch_configs):
+        reg._REGISTRY.pop(X4_ARCH, None)
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = dataclasses.replace(jax_config(ARCH).reduced(), dtype="float32")
