@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's cold-start serve path (llama3.2-3b through the
 Gateway, under each driver of the paper's start-path taxonomy, in warm mode,
-and coalesced into bucket programs under forecast-driven pre-boot;
-xlstm-1.3b and jamba-1.5-large) and its continuous-batching decode tier on
-one NVIDIA GPU and check them.
+and coalesced into bucket programs under forecast-driven pre-boot; the other
+nine architectures) and its continuous-batching decode tier on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -34,7 +34,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    gates and S one step past one and two chunks; for the selective
    scan ragged S, S = 1, S past a chunk, a carried state, f32, the reduced
    dims, a channel count that is no multiple of the block, and decays that
-   underflow to 0), with kernel / plain / library times (CUDA events
+   underflow to 0; for flash also phase 3g's shapes: whisper's encoder,
+   bidirectional over 1500 frames at 16/16 heads of 64, its cross-attention
+   of 128 tokens against 1500 frames, and G = 5, 6, 7, 12 at D = 128, causal
+   at 512 and at a ragged length; for decode whisper's cross decode over
+   1500 frames; four of them timed), with kernel / plain / library times (CUDA events
    around back-to-back calls: ``ms``, ``plain_ms``, ``library_ms``), the
    device alone (``device_ms``, ``library_device_ms``: 200 calls captured
    in one CUDA graph and replayed), the wrapper's host time per call
@@ -112,13 +116,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    seeded windows of a diurnal + burst rate (loss falls, predictions >= 0
    and within 1e-3 relative of the CPU fit); ``shutdown()`` (no non-daemon
    thread left, device memory within 64 MiB of before the phase).
-3c. The xlstm serve path, after phase 3f's gateway is shut down: ``deploy``
+3g. The remaining families at published widths, after phase 3f's gateway is
+   shut down: kimi-k2-1t-a32b cut to 2 of 61 layers (its first-k-dense
+   ``head`` layer and one MoE layer) and 16 of 384 experts (3.76 B
+   parameters) and qwen2-vl-2b cut to 2 of 28 layers (tokens only, M-RoPE
+   text positions) through ``deploy`` and the ``unikernel`` driver called
+   directly (v1 snapshot, 4 decode steps): 2 cold requests each, the split
+   verified, both requests' tokens equal each other and the eager
+   program's; then eagerly through the serve function's body (prefill + 16
+   greedy decode steps): olmo-1b, qwen2.5-32b and starcoder2-3b at 2
+   layers, arctic-480b at 2 layers and 8 of 128 experts, qwen2-vl-2b at 2
+   layers with 256 vision patches, and whisper-medium at its full 24 + 24
+   layers on 1500 frames and a 128-token prompt. Each family logs its line,
+   peak device memory and free disk; launches per request are 2 flash +
+   2 K decode (whisper 72 flash + 48 K decode); every kernel call of a
+   kernel-path prefill matches its plain version, the prefill-logit gate
+   holds against float32, and device memory comes back within 64 MiB after
+   each family.
+3c. The xlstm serve path, after phase 3g: ``deploy``
    (v1 snapshot; the ``unikernel`` driver called directly) full-width
    xlstm-1.3b (bf16, its depth cut to 1 of 6 periods of 7 mLSTM + 1 sLSTM
    for the time limit, random weights from the spec's seed), then the
    serve-path checks: 3 cold requests (7 mLSTM launches each, no
-   attention), each boot track alone, every mLSTM call of a kernel-path
-   prefill against its plain version, and the prefill-logit gate against
+   attention; the split verified, every request's tokens equal request 1's
+   and the eager program's), each boot track alone, every mLSTM call of a
+   kernel-path prefill against its plain version, and the prefill-logit gate against
    the plain path in float32.
 3d. The jamba serve path, after xlstm's deployment is freed: ``deploy``
    full-width jamba-1.5-large cut to one period of 8 layers (7 Mamba + 1
@@ -129,7 +151,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version, and the prefill-logit gate. Each path logs its peak device
    memory, and the free disk and host memory before its deploy.
 4. A ``kernels`` JSON line (launches per path, flash and decode also at
-   the 16-row bucket's shape), and the last line
+   the 16-row bucket's shape and phase 3g's timed shapes), and the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the repository around it (it imports
@@ -179,6 +201,27 @@ SCALED_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 DECODE_SLOTS, PAGE_SIZE = 8, 16
 DECODE_BUDGETS = [16, 3, 7, 16, 1, 5]
 N_DECODE_REQUESTS = 12
+
+# phase 2 at the shapes phase 3g gives the kernels: whisper's encoder
+# (bidirectional, 1500 frames, 16/16 heads of 64) and its cross-attention (a
+# 128-token decoder prompt against 1500 frames), qwen2.5-32b's prefill (G =
+# 5); flash at every other group size of the families (G = 6, 7, 12: qwen2-vl,
+# arctic, starcoder2), causal at 512 and at a ragged length; whisper's cross
+# decode (every step reads all 1500 frames). The four named ones are timed.
+WHISPER_ENC_FLASH = (4, 1500, 1500, 16, 16, 64, False, 0, "bfloat16")
+WHISPER_CROSS_FLASH = (4, 128, 1500, 16, 16, 64, False, 0, "bfloat16")
+QWEN32_FLASH = (4, 512, 512, 40, 8, 128, True, 0, "bfloat16")
+WHISPER_CROSS_DECODE = (4, 1500, 16, 16, 64, [1500] * 4, "bfloat16")
+FAMILY_FLASH_CASES = [WHISPER_ENC_FLASH, WHISPER_CROSS_FLASH, QWEN32_FLASH,
+                      (2, 77, 77, 40, 8, 128, True, 0, "bfloat16")]
+FAMILY_FLASH_CASES += [case for hq, hkv in ((12, 2), (56, 8), (24, 2))
+                       for case in ((4, 512, 512, hq, hkv, 128, True, 0, "bfloat16"),
+                                    (2, 77, 77, hq, hkv, 128, True, 0, "bfloat16"))]
+FAMILY_DECODE_CASES = [WHISPER_CROSS_DECODE]
+FAMILY_TIMED = {id(WHISPER_ENC_FLASH): "whisper's encoder",
+                id(WHISPER_CROSS_FLASH): "whisper's cross-attention",
+                id(QWEN32_FLASH): "qwen2.5-32b's prefill",
+                id(WHISPER_CROSS_DECODE): "whisper's cross decode"}
 
 
 def log(msg: str) -> None:
@@ -791,8 +834,11 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
     torch.cuda.reset_peak_memory_stats()
     tokens = torch.from_numpy(dep.example_tokens(seed=1)).cuda()
     want = want_per_request(cfg, spec)
+    if not dep.split_ok:
+        raise AssertionError(f"deploy {spec.name}: the head/tail split was not verified")
     driver = UnikernelDriver()
     ops.reset_launch_counts()
+    first = None
     for r in range(n_requests):
         before = ops.launch_counts()
         tl = Timeline()
@@ -813,9 +859,19 @@ def serve_path(torch, spec, work, n_requests, want_per_request):
                 or out.dtype != torch.int32 or not bool(((out >= 0) &
                                                         (out < cfg.vocab_size)).all()):
             raise AssertionError(f"bad output {out.shape} {out.dtype}")
+        first = out if first is None else first
+        if not torch.equal(out, first):
+            raise AssertionError(f"request {r + 1}'s tokens differ from request 1's")
         if r < n_requests - 1:
             driver.finish(dep, ex)
     launches = ops.launch_counts()
+    with torch.inference_mode():
+        eager = dep.serve_fn(ex.params, tokens)
+    log(f"every request's tokens equal request 1's; the eager program's equal them: "
+        f"{torch.equal(eager, first)}")
+    if not torch.equal(eager, first):
+        raise AssertionError(f"the eager program's tokens {eager.tolist()} differ from the "
+                             "served ones")
 
     # each boot track alone, to see what the overlap hides (the last
     # executor keeps its weights meanwhile)
@@ -880,8 +936,15 @@ def prefill_gates(torch, dep, held, tokens, out, work, release) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"gates, f32 reference included: {memory_line(torch, work)}")
-    lk, lp = lk.float(), lp.float()
+    logit_gate(torch, lk, lp, l32, out, out_plain)
 
+
+def logit_gate(torch, lk, lp, l32, out, out_plain) -> None:
+    """The kernel path's prefill logits ``lk`` no less accurate against the
+    plain path in float32 (``l32``) than the plain bf16 path's ``lp``: rel_l2
+    at most twice as large; ``out`` and ``out_plain`` are the two paths'
+    greedy tokens (their agreement is logged, not gated: near-ties)."""
+    lk, lp = lk.float(), lp.float()
     err_k, err_p = rel_l2(lk, l32), rel_l2(lp, l32)
     ak, ap = lk.argmax(-1), lp.argmax(-1)
     gaps = [(lp[r, ap[r]] - lp[r, ak[r]]).item() for r in range(lp.shape[0]) if ak[r] != ap[r]]
@@ -1618,6 +1681,181 @@ def jamba_launches(cfg, spec) -> dict:
             "selective_scan": P * (cfg.ssm.attn_every - 1)}
 
 
+# -------------------------------------------------------------------- phase 3g
+
+# the remaining families at their published widths, depth (and experts) cut
+# for one card and the time limit: registered name -> (arch, decoder layers
+# kept, experts kept or None)
+FAMILY_CUTS = {"kimi-k2-1t-a32b:2L16E": ("kimi-k2-1t-a32b", 2, 16),
+               "qwen2-vl-2b:2L": ("qwen2-vl-2b", 2, None),
+               "olmo-1b:2L": ("olmo-1b", 2, None),
+               "qwen2.5-32b:2L": ("qwen2.5-32b", 2, None),
+               "starcoder2-3b:2L": ("starcoder2-3b", 2, None),
+               "arctic-480b:2L8E": ("arctic-480b", 2, 8)}
+# through deploy and the unikernel driver (v1 snapshot), 2 cold requests
+# each, at 4 decode steps: at 16 the two deploys' export and split took 145 s
+# of a 1,088 s run, which another run's 2x host-time spread would carry past
+# the limit
+FAMILY_DEPLOYED = ("kimi-k2-1t-a32b:2L16E", "qwen2-vl-2b:2L")
+FAMILY_REQUESTS = 2
+FAMILY_DEPLOY_STEPS = 4
+# eagerly through the serve function's body (prefill + K greedy decode
+# steps); True: with the frontend stub's inputs (patches, frames)
+FAMILY_EAGER = (("olmo-1b:2L", False), ("qwen2.5-32b:2L", False),
+                ("starcoder2-3b:2L", False), ("arctic-480b:2L8E", False),
+                ("qwen2-vl-2b:2L", True), ("whisper-medium", True))
+WHISPER_PROMPT = 128                # decoder prompt; + K stays under its 448 positions
+
+
+def register_families() -> None:
+    from repro_torch.configs import get_config, register
+    for name, (arch, layers, experts) in FAMILY_CUTS.items():
+        cfg = get_config(arch)
+        cut = dataclasses.replace(cfg, n_layers=layers)
+        if experts is not None:
+            cut = dataclasses.replace(cut, moe=dataclasses.replace(cfg.moe, n_experts=experts))
+        register(name)(lambda cut=cut: cut)
+
+
+def family_launches(cfg, steps: int) -> dict:
+    """Per request: one flash launch per encoder layer and per decoder
+    attention (self, and whisper's cross), one decode launch per decoder
+    attention and step."""
+    per_token = 2 * cfg.n_layers if cfg.enc_dec else cfg.n_layers
+    return {"flash_attention": cfg.n_encoder_layers + per_token,
+            "decode_attention": per_token * steps, "paged_decode_attention": 0,
+            "mlstm": 0, "selective_scan": 0}
+
+
+def config_line(cfg) -> str:
+    moe = (f" | {cfg.moe.n_experts} experts top-{cfg.moe.top_k} width {cfg.moe.d_ff_expert}"
+           f" shared {cfg.moe.n_shared_experts} first_k_dense {cfg.moe.first_k_dense}"
+           f" dense_residual {cfg.moe.dense_residual}" if cfg.moe else "")
+    enc = f" | {cfg.n_encoder_layers} encoder layers over {cfg.encoder_seq}" \
+        if cfg.enc_dec else ""
+    return (f"{cfg.n_layers} layers d_model {cfg.d_model} heads {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} hd {cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab "
+            f"{cfg.vocab_size} {cfg.norm} {cfg.act} rope {cfg.rope}{moe}{enc}")
+
+
+def eager_family(torch, arch, frontend: bool, work) -> dict:
+    """One family through the serve function's body, eagerly on the card:
+    random bf16 weights from seed 0, B x prompt tokens from seed 1 (and the
+    frontend stub's inputs from seed 2), prefill + K greedy decode steps with
+    the launches of ``family_launches``; then every kernel call of a
+    kernel-path prefill against its plain version and the prefill-logit gate
+    against the plain path in float32 on the same weights. Returns the
+    launches of the served request."""
+    import numpy as np
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.frontends import synth_frontend
+
+    cfg = get_config(arch)
+    B, K = SPEC["batch_size"], SPEC["decode_steps"]
+    prompt = WHISPER_PROMPT if cfg.enc_dec else SPEC["prompt_len"]
+    log(f"before {arch} (eager{', frontend inputs' if frontend else ''}): "
+        f"{memory_line(torch, work)}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, max_seq=prompt + K)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, prompt), dtype=np.int32)).cuda()
+    batch = {"tokens": tokens}
+    if frontend:
+        batch.update(synth_frontend(cfg, B, prompt, torch.Generator(device="cuda").manual_seed(2)))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+
+    def serve():
+        logits, cache = model.prefill(params, batch, capacity=prompt + K)
+        toks = []
+        for _ in range(K):
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            logits, cache = model.decode(params, cache, tok)
+            toks.append(tok[:, 0])
+        return torch.stack(toks, dim=1)
+
+    before = ops.launch_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        out = serve()
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+    grew = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    n_params = sum(t.numel() for t in pytree.leaves(params))
+    inputs = ", ".join(f"{k} {list(v.shape)}" for k, v in batch.items())
+    log(f"family {arch}: {n_params} params | {config_line(cfg)} | inputs {inputs} | init "
+        f"{t_init:.2f} s | serve (prefill + {K} decode steps) {t_serve:.3f} s | launches "
+        f"{grew} | tokens {out.tolist()} | {memory_line(torch, work)}")
+    want = family_launches(cfg, K)
+    if grew != want:
+        raise AssertionError(f"{arch}: launches {grew}, expected {want}")
+    if tuple(out.shape) != (B, K) or out.dtype != torch.int32 or \
+            not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: bad output {out.shape} {out.dtype}")
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), recorded_kernel_calls(ops) as calls:
+        lk, _ = model.prefill(params, batch, capacity=prompt)
+    check_recorded_calls(torch, calls)
+    del calls
+    with torch.inference_mode(), ops.impl_scope("plain"):
+        lp, _ = model.prefill(params, batch, capacity=prompt)
+        out_plain = serve()
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"), prompt + K)
+        params32 = pytree.tree_map(lambda t: t.float(), params)
+        l32, _ = model32.prefill(params32, batch, capacity=prompt)
+        del params32
+    log(f"{arch} gates, f32 reference included: {memory_line(torch, work)}")
+    logit_gate(torch, lk, lp, l32, out, out_plain)
+    return grew
+
+
+def family_paths(torch, work) -> dict:
+    """Phase 3g: the remaining families at published widths. Kimi (its
+    first-k-dense ``head`` layer and one MoE layer) and qwen2-vl (tokens
+    only, M-RoPE text positions) through ``deploy`` and the ``unikernel``
+    driver, as phases 3c and 3d; olmo, qwen2.5-32b, starcoder2, arctic,
+    qwen2-vl with patches and whisper (frames, full depth) eagerly through
+    the serve function's body. After each, device memory back within
+    ``MEMORY_SLACK`` of before it. Returns the launches of each path."""
+    from repro_torch.core.artifact import FunctionSpec
+
+    register_families()
+    launches = {}
+
+    def settle(label: str, allocated0: int) -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        allocated1 = tensor_bytes(torch)
+        log(f"phase 3g {label}: device memory allocated before {allocated0} B, after "
+            f"{allocated1} B (allowed difference {MEMORY_SLACK} B)")
+        if abs(allocated1 - allocated0) > MEMORY_SLACK:
+            raise AssertionError(f"phase 3g {label} left device memory allocated")
+
+    for arch in FAMILY_DEPLOYED:
+        label = arch.split(":")[0] + " deploy"
+        allocated0 = tensor_bytes(torch)
+        spec = FunctionSpec(**dict(SPEC, arch=arch, decode_steps=FAMILY_DEPLOY_STEPS))
+        folder = work / arch.replace(":", "_")
+        dep, launches[label] = serve_path(
+            torch, spec, folder, FAMILY_REQUESTS,
+            lambda cfg, spec: family_launches(cfg, spec.decode_steps))
+        del dep
+        shutil.rmtree(folder, ignore_errors=True)
+        settle(label, allocated0)
+    for arch, frontend in FAMILY_EAGER:
+        label = arch.split(":")[0] + (" eager with frontend inputs" if frontend else " eager")
+        allocated0 = tensor_bytes(torch)
+        launches[label] = eager_family(torch, arch, frontend, work)
+        settle(label, allocated0)
+    return launches
+
+
 # ------------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1700,7 +1938,7 @@ def main() -> int:
                    (2, 64, 100, 24, 8, 128, True, 36, "bfloat16"),
                    (2, 130, 130, 8, 8, 128, True, 0, "bfloat16"),
                    (1, 33, 70, 64, 8, 128, True, 37, "bfloat16"),
-                   (2, 77, 77, 4, 2, 32, True, 0, "bfloat16")]
+                   (2, 77, 77, 4, 2, 32, True, 0, "bfloat16")] + FAMILY_FLASH_CASES
     decode_main = (4, 528, 24, 8, 128, [528, 528, 528, 528], "bfloat16")
     decode_cases = [decode_main,
                     decode_bucket,
@@ -1724,6 +1962,7 @@ def main() -> int:
                      (3, 200, 34, 2, 64, [200, 0, 77], "float32"),
                      (3, 100, 16, 16, 64, [1, 64, 100], "bfloat16"),
                      (2, 2100, 24, 8, 128, [2100, 1500], "bfloat16")]   # 33 splits
+    decode_cases += FAMILY_DECODE_CASES
     # B, page_size, max_pages, Hq, Hkv, D, lengths, dtype; the first is the
     # decode tier's shape (8 slots, 33 pages of 16 = 528 positions)
     paged_cases = [(8, 16, 33, 24, 8, 128, [528] * 8, "bfloat16"),
@@ -1776,8 +2015,8 @@ def main() -> int:
     timed_extra = {id(jamba_flash): "jamba's shape", id(jamba_decode): "jamba's shape",
                    id(flash_admit): "the decode tier's admit shape",
                    id(flash_bucket): "the 16-row bucket's shape",
-                   id(decode_bucket): "the 16-row bucket's shape"}
-    results, bucket_rows = {}, {}
+                   id(decode_bucket): "the 16-row bucket's shape", **FAMILY_TIMED}
+    results, bucket_rows, family_rows = {}, {}, {}
     for name, check, cases in (
             ("flash_attention",
              lambda c, t: check_flash(torch, F, fa, ref, gen, c, t), flash_cases),
@@ -1816,11 +2055,14 @@ def main() -> int:
         if bad:
             raise AssertionError(f"{name} disagrees with its plain version on {bad}")
         results[name] = main
+        row_keys = ("case", "max_abs_err", "ms", "device_ms", "host_us", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_device_ms")
         for c, r in zip(cases, rows):
             if c is flash_bucket or c is decode_bucket:
-                bucket_rows[name] = {k: r[k] for k in (
-                    "case", "max_abs_err", "ms", "device_ms", "host_us", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms", "library_device_ms")}
+                bucket_rows[name] = {k: r[k] for k in row_keys}
+            if id(c) in FAMILY_TIMED:
+                family_rows.setdefault(name, {})[FAMILY_TIMED[id(c)]] = {
+                    k: r[k] for k in row_keys}
 
     phase_done("phase 2")
     for arch, layers in ((LLAMA_ARCH, LLAMA_LAYERS), (COALESCE_ARCH, COALESCE_LAYERS)):
@@ -1852,6 +2094,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(work / "coalesced", ignore_errors=True)
+
+        # ---- phase 3g: the remaining families at published widths
+        launches_3g = family_paths(torch, work / "families")
+        phase_done("phase 3g")
+        shutil.rmtree(work / "families", ignore_errors=True)
 
         # ---- phase 3c: the xlstm serve path, full width, 1 of 6 periods
         _, launches_3c = serve_path(
@@ -1888,7 +2135,8 @@ def main() -> int:
     for name, r in results.items():
         by_path = {"serve": launches[name], "decode_tier": launches_3b[name],
                    "driver_taxonomy": launches_3e[name], "coalesced": launches_3f[name],
-                   "xlstm_serve": launches_3c[name], "jamba_serve": launches_3d[name]}
+                   "xlstm_serve": launches_3c[name], "jamba_serve": launches_3d[name],
+                   **{path: counts[name] for path, counts in launches_3g.items()}}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
@@ -1901,6 +2149,8 @@ def main() -> int:
                         "library_device_ms": r["library_device_ms"]})
         if name in bucket_rows:
             kernels[-1]["at_bucket_16"] = bucket_rows[name]
+        if name in family_rows:
+            kernels[-1]["at_family_shapes"] = family_rows[name]
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

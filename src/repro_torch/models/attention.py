@@ -1,8 +1,8 @@
 """GQA attention in two modes: full sequence (prefill, returns K/V) and cached decode.
 
-Port of ``repro.models.attention`` (``attention_full``, ``attention_decode``
-and ``attention_decode_paged``). The sequence-sharded decode branch comes
-with a later slice.
+Port of ``repro.models.attention`` (``attention_full`` with cross-attention,
+``attention_decode`` with cross decode, and ``attention_decode_paged``). The
+sequence-sharded decode branch comes with a later slice.
 
 ``attention_decode`` and ``attention_decode_paged`` write the new K/V into
 the cache or the page pool **in place** and return the same tensors (the JAX
@@ -11,7 +11,7 @@ layer's page pool, would be bandwidth the decode step does not need.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,30 +64,36 @@ def _out(cfg, p, o):
 
 
 def attention_full(cfg, p: dict, x: torch.Tensor, rope, *, causal: bool = True,
-                   q_offset: int = 0):
-    """Full-sequence self-attention; ``rope`` is the pass's
-    ``positional_tables`` (or None). Returns (y [B,S,d], (k, v)) — k/v handed
-    back so prefill can fill the cache."""
+                   q_offset: int = 0, kv_from: Optional[torch.Tensor] = None):
+    """Full-sequence attention; ``rope`` is the pass's ``positional_tables``
+    (or None). ``kv_from``: the encoder output [B,Se,d] for cross-attention,
+    whose K/V take no rotary and are attended bidirectionally. Returns
+    (y [B,S,d], (k, v)) — k/v handed back so prefill can fill the cache."""
     q = _proj_q(cfg, p, x)
-    k, v = _proj_kv(cfg, p, x)
-    if rope is not None:
+    k, v = _proj_kv(cfg, p, x if kv_from is None else kv_from)
+    if kv_from is None and rope is not None:
         q, k = rotate(q, rope), rotate(k, rope)
     o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                      causal=causal, q_offset=q_offset)
+                      causal=causal and kv_from is None, q_offset=q_offset)
     return _out(cfg, p, o), (k, v)
 
 
 def attention_decode(cfg, p: dict, x_t: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos, rope):
+                     v_cache: torch.Tensor, pos, rope, *, cross: bool = False):
     """One-token attention against a cache, writing the token's K/V at ``pos``.
 
     x_t: [B,1,d]; k_cache/v_cache: [B,S,nkv,hd] (contiguous, updated in
     place); pos: int (next position, lock-step batch) or int32 tensor [B]
     (per-row positions); rope: ``positional_tables`` of ``decode_positions``
-    (or None). Returns (y [B,1,d], k_cache, v_cache).
+    (or None). With ``cross`` the caches hold the encoder's K/V: nothing is
+    written, and the token attends to all S positions. Returns
+    (y [B,1,d], k_cache, v_cache).
     """
     B = x_t.shape[0]
     q = _proj_q(cfg, p, x_t)                                          # [B,1,nq,hd]
+    if cross:
+        o = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache, k_cache.shape[1])
+        return _out(cfg, p, o[:, None]), k_cache, v_cache
     k_t, v_t = _proj_kv(cfg, p, x_t)                                  # [B,1,nkv,hd]
     if rope is not None:
         q, k_t = rotate(q, rope), rotate(k_t, rope)
@@ -134,8 +140,11 @@ def attention_decode_paged(cfg, p: dict, x_t: torch.Tensor, k_pages: torch.Tenso
     return _out(cfg, p, o[:, None]), k_pages, v_pages
 
 
-def decode_positions(batch: int, pos, device) -> torch.Tensor:
-    """[B, 1] int32 positions of a decode step at ``pos`` (int or [B])."""
+def decode_positions(batch: int, pos, device, mrope: bool = False) -> torch.Tensor:
+    """[B, 1] int32 positions of a decode step at ``pos`` (int or [B]); with
+    ``mrope`` the same ids on all three M-RoPE axes, [3, B, 1]."""
     if isinstance(pos, int):
-        return torch.full((batch, 1), pos, dtype=torch.int32, device=device)
-    return pos.to(torch.int32).reshape(batch, 1)
+        base = torch.full((batch, 1), pos, dtype=torch.int32, device=device)
+    else:
+        base = pos.to(torch.int32).reshape(batch, 1)
+    return base.expand(3, batch, 1) if mrope else base

@@ -138,7 +138,34 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     :func:`rotate` is two products and a roll. A forward pass computes them
     once and every layer's q and k reuse them."""
     inv = rope_freqs(head_dim, theta, device=positions.device).float()    # [hd/2]
-    ang = positions.float()[..., None] * inv                              # [B, S, hd/2]
+    return _angle_tables(positions.float()[..., None] * inv)              # [B, S, hd/2]
+
+
+# M-RoPE (Qwen2-VL): rotary sections over (temporal, height, width) position ids.
+MROPE_SECTION_FRACS = (0.25, 0.375, 0.375)  # qwen2-vl uses [16, 24, 24] of 64 pairs
+
+
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    half = head_dim // 2
+    t = int(half * MROPE_SECTION_FRACS[0])
+    h = int(half * MROPE_SECTION_FRACS[1])
+    return (t, h, half - t - h)
+
+
+def mrope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """:func:`rope_tables` for M-RoPE positions [3, B, S] (t/h/w ids): the
+    frequencies fall in three contiguous sections, each turned by its own
+    axis's positions; the tables keep the [B, S, 1, hd] form, so
+    :func:`rotate` is unchanged."""
+    inv = rope_freqs(head_dim, theta, device=positions.device).float()    # [hd/2]
+    parts, start = [], 0
+    for axis, sec in enumerate(mrope_sections(head_dim)):
+        parts.append(positions[axis].float()[..., None] * inv[start:start + sec])
+        start += sec
+    return _angle_tables(torch.cat(parts, dim=-1))                        # [B, S, hd/2]
+
+
+def _angle_tables(ang: torch.Tensor):
     cos, sin = torch.cos(ang), torch.sin(ang)
     return (torch.cat([cos, cos], dim=-1)[:, :, None, :],
             torch.cat([-sin, sin], dim=-1)[:, :, None, :])
@@ -160,13 +187,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return rotate(x, rope_tables(positions, x.shape[-1], theta))
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [3, B, S] int32 (t/h/w position ids)."""
+    return rotate(x, mrope_tables(positions, x.shape[-1], theta))
+
+
 def positional_tables(cfg, positions: Optional[torch.Tensor]):
-    """Per-pass positional state for ``attention_*``: rope tables, or None."""
+    """Per-pass positional state for ``attention_*``: rope or M-RoPE tables
+    (positions [B, S] or [3, B, S]), or None."""
     if positions is None or cfg.rope == "none":
         return None
-    if cfg.rope != "rope":
-        raise NotImplementedError(f"rope {cfg.rope!r} not yet ported")
-    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return mrope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    if cfg.rope == "rope":
+        return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    raise ValueError(cfg.rope)
 
 
 # -------------------------------------------------------------------------- MLP

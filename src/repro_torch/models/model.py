@@ -1,5 +1,7 @@
 """Public model API (port of ``repro.models.model``): param specs, init,
-prefill and decode for one architecture and maximum sequence length."""
+prefill and decode for one architecture and maximum sequence length. A
+vision batch carries ``patches`` and an encoder-decoder batch ``frames``
+beside ``tokens`` (``repro_torch.models.frontends``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,8 +17,8 @@ from repro_torch.models.layers import (
     norm_specs,
 )
 from repro_torch.models.transformer import (
-    make_positions, stack_cache_specs, stack_decode, stack_decode_paged, stack_forward,
-    stack_page_pool_specs, stack_specs,
+    encoder_forward, make_positions, stack_cache_specs, stack_decode, stack_decode_paged,
+    stack_forward, stack_page_pool_specs, stack_specs,
 )
 
 
@@ -38,21 +40,47 @@ class Model:
         """Random weights on ``gen.device``, drawn from ``gen``."""
         return init_tree(self.param_specs(), gen)
 
+    # ------------------------------------------------------------------ shared
+    def _embed(self, params, batch: Dict, tokens: torch.Tensor, pos_offset=0):
+        """Token embeddings; a vision batch's ``patches`` [B, N, d] take the
+        first N positions."""
+        x = embed_tokens(self.cfg, params["embed"], tokens, pos_offset)
+        if self.cfg.frontend == "vision" and "patches" in batch:
+            npatch = batch["patches"].shape[1]
+            x = torch.cat([batch["patches"].to(x.dtype), x[:, npatch:]], dim=1)
+        return x
+
+    def _n_patches(self, batch: Dict) -> int:
+        if self.cfg.frontend == "vision" and "patches" in batch:
+            return batch["patches"].shape[1]
+        return 0
+
+    def _enc_out(self, params, batch: Dict):
+        """The encoder's output over ``batch["frames"]`` (encoder-decoder
+        only; a batch of tokens alone raises KeyError, as in the JAX
+        package)."""
+        if not self.cfg.enc_dec:
+            return None
+        return encoder_forward(self.cfg, params["stack"], batch["frames"])
+
     def _head(self, params, x):
         x = apply_norm(self.cfg, params["final"], x)
         return logits_head(self.cfg, params["embed"], x)
 
     # ----------------------------------------------------------------- prefill
     def prefill(self, params, batch: Dict, capacity: Optional[int] = None):
-        """tokens [B, S] -> (last-position logits [B, V], cache) with the
-        cache's K/V zero-padded to ``capacity`` positions (a recurrent
-        stack's state has no position axis)."""
+        """tokens [B, S] (and a frontend's ``frames`` or ``patches``) ->
+        (last-position logits [B, V], cache) with the cache's K/V zero-padded
+        to ``capacity`` positions (a recurrent stack's state has no position
+        axis; the encoder's K/V keep ``encoder_seq``)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         capacity = capacity or S
-        positions = make_positions(self.cfg, B, S, device=tokens.device)
-        x = embed_tokens(self.cfg, params["embed"], tokens)
-        x, inner = stack_forward(self.cfg, params["stack"], x, positions, "prefill")
+        positions = make_positions(self.cfg, B, S, self._n_patches(batch), device=tokens.device)
+        enc_out = self._enc_out(params, batch)
+        x = self._embed(params, batch, tokens)
+        x, inner = stack_forward(self.cfg, params["stack"], x, positions, "prefill",
+                                 enc_out=enc_out)
         logits = self._head(params, x[:, -1:])[:, 0]
         return logits, {"inner": self._pad_cache(inner, B, capacity), "pos": S}
 
@@ -78,7 +106,7 @@ class Model:
         pos = cache["pos"]
         if isinstance(pos, torch.Tensor) and pos.dim() == 0:
             pos = int(pos)
-        x = embed_tokens(self.cfg, params["embed"], token, pos_offset=pos)
+        x = self._embed(params, {}, token, pos_offset=pos)
         x, inner = stack_decode(self.cfg, params["stack"], x, cache["inner"], pos)
         logits = self._head(params, x)[:, 0]
         return logits, {"inner": inner, "pos": pos + 1}
@@ -95,7 +123,7 @@ class Model:
         writes land on the null page and their logits are garbage the step
         loop discards. Uniform stack only.
         """
-        x = embed_tokens(self.cfg, params["embed"], token, pos_offset=pos)
+        x = self._embed(params, {}, token, pos_offset=pos)
         x, k_pages, v_pages = stack_decode_paged(self.cfg, params["stack"], x, k_pages,
                                                  v_pages, page_table, pos)
         logits = self._head(params, x)[:, 0]

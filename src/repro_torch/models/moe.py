@@ -4,10 +4,10 @@ dispatch with GShard-style capacity.
 Dispatch: flatten tokens -> top-k expert ids -> stable argsort by expert ->
 position-in-expert via searchsorted -> scatter into a dense [E, C, d] buffer
 (row E*C takes what capacity drops) -> batched expert GEMMs -> gather-combine
-with the router gates, in the model dtype. The JAX package's second mode,
-the per-data-shard dispatch ``_moe_forward_local``, runs only under sharding
-rules that ask for it; the port runs on one device and has the global
-dispatch alone (ROADMAP A10).
+with the router gates, in the model dtype, summed per token in a fixed
+order. The JAX package's second mode, the per-data-shard dispatch
+``_moe_forward_local``, runs only under sharding rules that ask for it; the
+port runs on one device and has the global dispatch alone (ROADMAP A10).
 
 Shared experts and the dense residual MLP (Kimi, Arctic) are kept, as in the
 JAX module; the stack-level variants (first-k-dense layers, MoE every Nth
@@ -106,10 +106,15 @@ def moe_forward(cfg, p: dict, x: torch.Tensor, *, capacity_factor: float,
     out = _expert_gemms(cfg, p, buf[:E * C].reshape(E, C, d))          # [E, C, d]
 
     # ---- combine, in the model dtype (gates sum to 1: <= top_k terms) ----
+    # The JAX package scatter-adds the sorted terms into their tokens; here
+    # they go back to (token, choice) order and each token's k terms are
+    # summed, in an order fixed by the data: ``index_add_`` on CUDA adds with
+    # atomics in any order, and past two terms the bf16 sum then varies run
+    # to run (top-8 Kimi), where deploy checks tokens bit for bit.
     flat = out.reshape(E * C, d)
     contrib = torch.where(keep[:, None], flat[torch.clamp(slot, max=E * C - 1)], 0)
-    contrib = contrib * fg_s[:, None].to(contrib.dtype)
-    y = x.new_zeros((T, d)).index_add_(0, ftok_s, contrib.to(x.dtype))
+    contrib = (contrib * fg_s[:, None].to(contrib.dtype)).to(x.dtype)
+    y = contrib[torch.argsort(order)].reshape(T, k, d).sum(dim=1)
 
     # ---- always-on paths ----
     if "shared" in p:

@@ -1,14 +1,23 @@
-"""Layer stacks of the uniform dense, jamba and xLSTM families (port of
-``repro.models.transformer``).
+"""Layer stacks of every family (port of ``repro.models.transformer``).
+
+Four stack shapes cover the ten architectures:
+
+* ``uniform`` — attention + (MLP | MoE) every layer, with Kimi's unstacked
+  first-k-dense ``head`` layers; the dense, MoE and vision archs;
+* ``jamba`` — periods of (N-1 Mamba + 1 attention), MoE every
+  ``moe_every``-th layer;
+* ``xlstm`` — periods of (N-1 mLSTM + 1 sLSTM) blocks;
+* ``encdec`` — whisper: a bidirectional encoder and a causal decoder with
+  cross-attention.
 
 The JAX package scans over the stacked ``[L, ...]`` (jamba, xLSTM:
 ``[P, ...]`` periods) layer leaves; here a Python loop walks views of the
 same leaves (``leaf[i]`` is a view, nothing is copied). The ``stack_*``
-dispatchers pick the family; the other families (MoE on the uniform stack,
-encoder-decoder, the vision frontend) are later slices and raise
-``NotImplementedError``.
+dispatchers pick the family.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -18,8 +27,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
-    ParamSpec, apply_mlp, apply_norm, mlp_specs, norm_specs, positional_tables,
+    ParamSpec, apply_mlp, apply_norm, mlp_specs, norm_specs, normal_init, positional_tables,
 )
+
+TRAIN_CF = 1.25   # MoE capacity factor (train)
+EVAL_CF = 2.0     # MoE capacity factor (inference)
 
 
 def _slice(tree, i: int):
@@ -34,8 +46,9 @@ def _split(tree) -> list:
 def split_layers(sp) -> dict:
     """``sp`` with its stacked ``layers`` leaves cut into a list of per-layer
     views (no copy); for the jamba and xLSTM stacks also each period's
-    blocks. The layer loops take either form; a traced program that runs many
-    passes cuts once instead of once per pass."""
+    blocks. Kimi's ``head`` is a list of unstacked layers already and passes
+    as it is. The layer loops take either form; a traced program that runs
+    many passes cuts once instead of once per pass."""
     layers = sp["layers"]
     if isinstance(layers, list):
         return sp
@@ -46,8 +59,8 @@ def split_layers(sp) -> dict:
     return {**sp, "layers": per}
 
 
-def _layer(sp, i: int):
-    layers = sp["layers"]
+def _layer(sp, i: int, key: str = "layers"):
+    layers = sp[key]
     return layers[i] if isinstance(layers, list) else _slice(layers, i)
 
 
@@ -73,82 +86,136 @@ def family_kind(cfg) -> str:
     return "uniform"
 
 
-def _require_uniform(cfg) -> None:
-    kind = family_kind(cfg)
-    if kind != "uniform" or cfg.moe is not None or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: {kind}{' moe' if cfg.moe else ''} stack not yet ported")
-
-
-def make_positions(cfg, batch: int, seq: int, device=None):
-    """Position ids for rope ([B,S] int32); None if cfg.rope == 'none'."""
+def make_positions(cfg, batch: int, seq: int, n_patches: int = 0, device=None):
+    """Position ids for rope ([B,S] int32) or M-RoPE ([3,B,S]: text ids on
+    all three axes, or for the first ``n_patches`` positions (t 0, h, w) on
+    the square patch grid); None if cfg.rope == 'none'."""
     if cfg.rope == "none":
         return None
-    if cfg.rope != "rope":
-        raise NotImplementedError(f"rope {cfg.rope!r} not yet ported")
-    return torch.arange(seq, dtype=torch.int32, device=device).expand(batch, seq)
+    s = torch.arange(seq, dtype=torch.int32, device=device)
+    if cfg.rope != "mrope":
+        return s.expand(batch, seq)
+    if n_patches == 0:
+        return s.expand(3, batch, seq)
+    g = max(math.isqrt(n_patches), 1)
+    in_img = s < n_patches
+    pos = torch.stack([torch.where(in_img, 0, s), torch.where(in_img, s // g, s),
+                       torch.where(in_img, s % g, s)])                   # [3, S]
+    return pos[:, None, :].expand(3, batch, seq)
+
+
+def _decode_tables(cfg, x_t, pos):
+    """The positional tables of a decode step at ``pos`` (int or [B])."""
+    return positional_tables(cfg, attn.decode_positions(x_t.shape[0], pos, x_t.device,
+                                                        mrope=cfg.rope == "mrope"))
 
 
 # =============================================================== uniform stack
 
+def _first_k(cfg) -> int:
+    """Kimi's unstacked first-k-dense layers (0 for every other family)."""
+    return cfg.moe.first_k_dense if cfg.moe else 0
+
+
 def uniform_specs(cfg, dtype):
-    _require_uniform(cfg)
-    L = cfg.n_layers
-    return {"layers": {
-        "ln1": norm_specs(cfg, dtype, stack=(L,)),
-        "attn": attn.attention_specs(cfg, dtype, stack=(L,)),
-        "ln2": norm_specs(cfg, dtype, stack=(L,)),
-        "mlp": mlp_specs(cfg, dtype, stack=(L,)),
-    }}
+    m = cfg.moe
+    first_k = _first_k(cfg)
+    Ls = cfg.n_layers - first_k
+    layer = {
+        "ln1": norm_specs(cfg, dtype, stack=(Ls,)),
+        "attn": attn.attention_specs(cfg, dtype, stack=(Ls,)),
+        "ln2": norm_specs(cfg, dtype, stack=(Ls,)),
+    }
+    if m is not None:
+        layer["moe"] = moe_mod.moe_specs(cfg, dtype, stack=(Ls,))
+    else:
+        layer["mlp"] = mlp_specs(cfg, dtype, stack=(Ls,))
+    specs = {"layers": layer}
+    if first_k:
+        specs["head"] = [{
+            "ln1": norm_specs(cfg, dtype),
+            "attn": attn.attention_specs(cfg, dtype),
+            "ln2": norm_specs(cfg, dtype),
+            "mlp": mlp_specs(cfg, dtype, d_ff=m.d_ff_dense or cfg.d_ff),
+        } for _ in range(first_k)]
+    return specs
 
 
-def _attn_block_full(cfg, p, x, rope):
-    h = apply_norm(cfg, p["ln1"], x)
-    a, kv = attn.attention_full(cfg, p["attn"], h, rope)
-    x = x + a
-    h2 = apply_norm(cfg, p["ln2"], x)
-    return x + apply_mlp(cfg, p["mlp"], h2), kv
+def _ffn(cfg, p, x, cf, with_aux):
+    """The feed-forward sublayer of a uniform block on the residual ``x`` ->
+    (x', MoE aux loss or None)."""
+    h = apply_norm(cfg, p["ln2"], x)
+    if "moe" in p:
+        y, aux = moe_mod.moe_forward(cfg, p["moe"], h, capacity_factor=cf, with_aux=with_aux)
+        return x + y, aux
+    return x + apply_mlp(cfg, p["mlp"], h), None
 
 
 def uniform_forward(cfg, sp, x, positions, mode: str):
-    """Returns (x, cache); cache = {"k", "v"} stacked [L,B,S,nkv,hd] when
-    mode == "prefill", else None. (The JAX version also returns the MoE aux
-    loss, which a dense stack does not have.)"""
-    _require_uniform(cfg)
+    """Returns (x, cache, aux); cache = {"k", "v"} stacked [Ls,B,S,nkv,hd]
+    (and Kimi's ``head``: a list of {"k", "v"} [B,S,nkv,hd]) when mode ==
+    "prefill", else None; aux is the MoE layers' summed auxiliary loss when
+    mode == "train" and the stack has MoE, else None (prefill discards it)."""
     rope = positional_tables(cfg, positions)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = _attn_block_full(cfg, _layer(sp, i), x, rope)
+    train = mode == "train"
+    cf = TRAIN_CF if train else EVAL_CF
+    aux = x.new_zeros((), dtype=torch.float32) if train and cfg.moe else None
+    first_k = _first_k(cfg)
+    head, ks, vs = [], [], []
+    layers = list(sp.get("head", [])) + [_layer(sp, i) for i in range(cfg.n_layers - first_k)]
+    for i, p in enumerate(layers):
+        a, (k, v) = attn.attention_full(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), rope)
+        x, a_l = _ffn(cfg, p, x + a, cf, train)
+        if a_l is not None:
+            aux = aux + a_l
         if mode == "prefill":
-            ks.append(k)
-            vs.append(v)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if mode == "prefill" else None
-    return x, cache
+            if i < first_k:
+                head.append({"k": k, "v": v})
+            else:
+                ks.append(k)
+                vs.append(v)
+    if mode != "prefill":
+        return x, None, aux
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    if head:
+        cache["head"] = head
+    return x, cache, aux
+
+
+def _attn_block_decode(cfg, p, x_t, k_c, v_c, pos, rope):
+    a, _, _ = attn.attention_decode(cfg, p["attn"], apply_norm(cfg, p["ln1"], x_t), k_c, v_c,
+                                    pos, rope)
+    return _ffn(cfg, p, x_t + a, EVAL_CF, False)[0]
 
 
 def uniform_decode(cfg, sp, x_t, cache, pos):
-    """One decode step through every layer; ``cache`` ({"k", "v"} stacked
-    [L,B,S,nkv,hd]) is updated in place and returned."""
-    _require_uniform(cfg)
-    rope = positional_tables(cfg, attn.decode_positions(x_t.shape[0], pos, x_t.device))
-    for i in range(cfg.n_layers):
-        p = _layer(sp, i)
-        h = apply_norm(cfg, p["ln1"], x_t)
-        a, _, _ = attn.attention_decode(cfg, p["attn"], h, cache["k"][i], cache["v"][i],
-                                        pos, rope)
-        x_t = x_t + a
-        h2 = apply_norm(cfg, p["ln2"], x_t)
-        x_t = x_t + apply_mlp(cfg, p["mlp"], h2)
+    """One decode step through every layer, Kimi's head layers first;
+    ``cache`` ({"k", "v"} stacked [Ls,B,S,nkv,hd], and ``head``) is updated in
+    place and returned."""
+    rope = _decode_tables(cfg, x_t, pos)
+    for p, c in zip(sp.get("head", []), cache.get("head", [])):
+        x_t = _attn_block_decode(cfg, p, x_t, c["k"], c["v"], pos, rope)
+    for i in range(cfg.n_layers - _first_k(cfg)):
+        x_t = _attn_block_decode(cfg, _layer(sp, i), x_t, cache["k"][i], cache["v"][i], pos,
+                                 rope)
     return x_t, cache
 
 
 def uniform_cache_specs(cfg, batch: int, capacity: int):
-    _require_uniform(cfg)
-    L, hd, nkv = cfg.n_layers, cfg.resolved_head_dim, cfg.n_kv_heads
+    first_k = _first_k(cfg)
+    Ls, hd, nkv = cfg.n_layers - first_k, cfg.resolved_head_dim, cfg.n_kv_heads
     dt = torch_dtype(cfg.dtype)
     kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
-    return {"k": _zeros_spec((L, batch, capacity, nkv, hd), dt, kv_axes),
-            "v": _zeros_spec((L, batch, capacity, nkv, hd), dt, kv_axes)}
+    specs = {"k": _zeros_spec((Ls, batch, capacity, nkv, hd), dt, kv_axes),
+             "v": _zeros_spec((Ls, batch, capacity, nkv, hd), dt, kv_axes)}
+    if first_k:
+        specs["head"] = [{"k": _zeros_spec((batch, capacity, nkv, hd), dt, kv_axes[1:]),
+                          "v": _zeros_spec((batch, capacity, nkv, hd), dt, kv_axes[1:])}
+                         for _ in range(first_k)]
+    return specs
+
+
+_NO_PAGED_HEAD = "paged decode does not support unstacked head layers"
 
 
 def uniform_decode_paged(cfg, sp, x_t, k_pages, v_pages, page_table, pos):
@@ -158,24 +225,26 @@ def uniform_decode_paged(cfg, sp, x_t, k_pages, v_pages, page_table, pos):
     ONE page table (a logical page spans every layer, so the allocator
     accounts it once), written in place through the per-layer views
     ``k_pages[i]``; pos: int32 [B] per row. Returns (x_t, k_pages, v_pages).
+    Unstacked head layers (Kimi's first-k-dense) keep per-request caches and
+    are refused, as in the JAX package.
     """
-    _require_uniform(cfg)
-    rope = positional_tables(cfg, attn.decode_positions(x_t.shape[0], pos, x_t.device))
+    if "head" in sp:
+        raise ValueError(_NO_PAGED_HEAD)
+    rope = _decode_tables(cfg, x_t, pos)
     for i in range(cfg.n_layers):
         p = _layer(sp, i)
         h = apply_norm(cfg, p["ln1"], x_t)
         a, _, _ = attn.attention_decode_paged(cfg, p["attn"], h, k_pages[i], v_pages[i],
                                               page_table, pos, rope)
-        x_t = x_t + a
-        h2 = apply_norm(cfg, p["ln2"], x_t)
-        x_t = x_t + apply_mlp(cfg, p["mlp"], h2)
+        x_t = _ffn(cfg, p, x_t + a, EVAL_CF, False)[0]
     return x_t, k_pages, v_pages
 
 
 def uniform_page_pool_specs(cfg, n_pages: int, page_size: int):
     """Zero-init page-pool specs for the uniform stack: K and V pools shaped
     [L, n_pages, page_size, nkv, hd] (page 0 is the reserved null page)."""
-    _require_uniform(cfg)
+    if _first_k(cfg):
+        raise ValueError(_NO_PAGED_HEAD)
     L, hd, nkv = cfg.n_layers, cfg.resolved_head_dim, cfg.n_kv_heads
     dt = torch_dtype(cfg.dtype)
     axes = ("layers", None, "kv_seq", "kv_heads", "head_dim")
@@ -200,10 +269,6 @@ def stack_page_pool_specs(cfg, n_pages: int, page_size: int):
 
 
 # ================================================================= jamba stack
-
-TRAIN_CF = 1.25   # MoE capacity factor (train)
-EVAL_CF = 2.0     # MoE capacity factor (inference)
-
 
 def _jamba_layout(cfg):
     """(period, P, moe_slots, mlp_slots): P periods of (period - 1) Mamba
@@ -386,26 +451,110 @@ def xlstm_cache_specs(cfg, batch: int, capacity: int):
     }
 
 
+# ================================================================ encdec stack
+
+def encdec_specs(cfg, dtype):
+    Le, Ld = cfg.n_encoder_layers, cfg.n_layers
+    return {
+        "enc_pos": ParamSpec((cfg.encoder_seq, cfg.d_model), dtype, (None, "embed"),
+                             normal_init(0.02)),
+        "enc_layers": {
+            "ln1": norm_specs(cfg, dtype, stack=(Le,)),
+            "attn": attn.attention_specs(cfg, dtype, stack=(Le,)),
+            "ln2": norm_specs(cfg, dtype, stack=(Le,)),
+            "mlp": mlp_specs(cfg, dtype, stack=(Le,)),
+        },
+        "enc_final": norm_specs(cfg, dtype),
+        "layers": {
+            "ln1": norm_specs(cfg, dtype, stack=(Ld,)),
+            "attn": attn.attention_specs(cfg, dtype, stack=(Ld,)),
+            "lnx": norm_specs(cfg, dtype, stack=(Ld,)),
+            "xattn": attn.attention_specs(cfg, dtype, stack=(Ld,)),
+            "ln2": norm_specs(cfg, dtype, stack=(Ld,)),
+            "mlp": mlp_specs(cfg, dtype, stack=(Ld,)),
+        },
+    }
+
+
+def encoder_forward(cfg, sp, frames):
+    """frames: [B, encoder_seq, d] (the frontend stub's embeddings) ->
+    [B, encoder_seq, d], through the bidirectional encoder."""
+    x = frames.to(torch_dtype(cfg.dtype)) + sp["enc_pos"][None]
+    for i in range(cfg.n_encoder_layers):
+        p = _layer(sp, i, "enc_layers")
+        a, _ = attn.attention_full(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), None,
+                                   causal=False)
+        x = x + a
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    return apply_norm(cfg, sp["enc_final"], x)
+
+
+def encdec_forward(cfg, sp, x, positions, mode: str, enc_out):
+    """The decoder over the encoder's output ``enc_out``. Returns (x, cache);
+    cache = {"k", "v"} (self-attention) and {"xk", "xv"} (the encoder's
+    projected K/V) stacked [Ld, ...] when mode == "prefill", else None."""
+    rope = positional_tables(cfg, positions)
+    names = ("k", "v", "xk", "xv")
+    kvs = {key: [] for key in names}
+    for i in range(cfg.n_layers):
+        p = _layer(sp, i)
+        a, kv = attn.attention_full(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), rope)
+        x = x + a
+        ax, xkv = attn.attention_full(cfg, p["xattn"], apply_norm(cfg, p["lnx"], x), None,
+                                      kv_from=enc_out)
+        x = x + ax
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+        for key, val in zip(names, kv + xkv):
+            kvs[key].append(val)
+    if mode != "prefill":
+        return x, None
+    return x, {key: torch.stack(vals) for key, vals in kvs.items()}
+
+
+def encdec_decode(cfg, sp, x_t, cache, pos):
+    """One decode step through every decoder layer: self-attention writes its
+    K/V into ``cache`` in place; cross-attention reads all of ``xk``/``xv``."""
+    rope = _decode_tables(cfg, x_t, pos)
+    for i in range(cfg.n_layers):
+        p = _layer(sp, i)
+        a, _, _ = attn.attention_decode(cfg, p["attn"], apply_norm(cfg, p["ln1"], x_t),
+                                        cache["k"][i], cache["v"][i], pos, rope)
+        x_t = x_t + a
+        ax, _, _ = attn.attention_decode(cfg, p["xattn"], apply_norm(cfg, p["lnx"], x_t),
+                                         cache["xk"][i], cache["xv"][i], pos, None, cross=True)
+        x_t = x_t + ax
+        x_t = x_t + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x_t))
+    return x_t, cache
+
+
+def encdec_cache_specs(cfg, batch: int, capacity: int):
+    Ld, hd, nkv = cfg.n_layers, cfg.resolved_head_dim, cfg.n_kv_heads
+    dt = torch_dtype(cfg.dtype)
+    kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": _zeros_spec((Ld, batch, capacity, nkv, hd), dt, kv_axes),
+            "v": _zeros_spec((Ld, batch, capacity, nkv, hd), dt, kv_axes),
+            "xk": _zeros_spec((Ld, batch, cfg.encoder_seq, nkv, hd), dt, kv_axes),
+            "xv": _zeros_spec((Ld, batch, cfg.encoder_seq, nkv, hd), dt, kv_axes)}
+
+
 # ================================================================== dispatchers
 
 def stack_specs(cfg, dtype):
-    kind = family_kind(cfg)
-    if kind == "jamba":
-        return jamba_specs(cfg, dtype)
-    if kind == "xlstm":
-        return xlstm_specs(cfg, dtype)
-    return uniform_specs(cfg, dtype)
+    return {"uniform": uniform_specs, "jamba": jamba_specs, "xlstm": xlstm_specs,
+            "encdec": encdec_specs}[family_kind(cfg)](cfg, dtype)
 
 
-def stack_forward(cfg, sp, x, positions, mode: str):
-    """Returns (x, cache); the jamba stack's MoE aux loss is dropped, as the
-    JAX package's prefill drops it."""
+def stack_forward(cfg, sp, x, positions, mode: str, enc_out=None):
+    """Returns (x, cache); the MoE aux loss is dropped, as the JAX package's
+    prefill drops it."""
     kind = family_kind(cfg)
     if kind == "jamba":
         return jamba_forward(cfg, sp, x, mode)[:2]
     if kind == "xlstm":
         return xlstm_forward(cfg, sp, x, mode)
-    return uniform_forward(cfg, sp, x, positions, mode)
+    if kind == "encdec":
+        return encdec_forward(cfg, sp, x, positions, mode, enc_out)
+    return uniform_forward(cfg, sp, x, positions, mode)[:2]
 
 
 def stack_decode(cfg, sp, x_t, cache, pos):
@@ -414,6 +563,8 @@ def stack_decode(cfg, sp, x_t, cache, pos):
         return jamba_decode(cfg, sp, x_t, cache, pos)
     if kind == "xlstm":
         return xlstm_decode(cfg, sp, x_t, cache)
+    if kind == "encdec":
+        return encdec_decode(cfg, sp, x_t, cache, pos)
     return uniform_decode(cfg, sp, x_t, cache, pos)
 
 
@@ -421,8 +572,9 @@ def split_cache(cfg, inner):
     """The decode state ``inner`` with its stacked leaves cut into per-layer
     (jamba, xLSTM: per-block) views, no copy, so that a traced program of
     many decode steps cuts once instead of once per step; writes through the
-    views land in the stacked tensors. A uniform K/V cache is returned as it
-    is."""
+    views land in the stacked tensors. A uniform K/V cache (with Kimi's
+    ``head`` list, already per layer) and an encoder-decoder cache are
+    returned as they are."""
     kind = family_kind(cfg)
     if kind == "jamba":
         return {"conv": [list(per) for per in inner["conv"]],
@@ -436,9 +588,6 @@ def split_cache(cfg, inner):
 
 
 def stack_cache_specs(cfg, batch: int, capacity: int):
-    kind = family_kind(cfg)
-    if kind == "jamba":
-        return jamba_cache_specs(cfg, batch, capacity)
-    if kind == "xlstm":
-        return xlstm_cache_specs(cfg, batch, capacity)
-    return uniform_cache_specs(cfg, batch, capacity)
+    return {"uniform": uniform_cache_specs, "jamba": jamba_cache_specs,
+            "xlstm": xlstm_cache_specs,
+            "encdec": encdec_cache_specs}[family_kind(cfg)](cfg, batch, capacity)

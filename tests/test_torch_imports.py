@@ -39,7 +39,14 @@ def test_port_sources_were_found():
             "selective_scan.py", "moe.py", "jamba_1_5_large_398b.py", "gateway.py",
             "dispatcher.py", "agent.py", "timerwheel.py", "blobstore.py", "autoscaler.py",
             "batching.py", "drivers.py", "executor.py", "snapshot.py",
-            "compile_cache.py", "forecast.py"} <= names
+            "compile_cache.py", "forecast.py", "frontends.py", "olmo_1b.py",
+            "qwen2_5_32b.py", "starcoder2_3b.py", "arctic_480b.py", "kimi_k2_1t_a32b.py",
+            "qwen2_vl_2b.py", "whisper_medium.py"} <= names
+    # a counterpart of every config and model module of the JAX package
+    for sub in ("configs", "models"):
+        jax_mods = {p.name for p in (ROOT / "src" / "repro" / sub).glob("*.py")}
+        port_mods = {p.name for p in (ROOT / "src" / "repro_torch" / sub).glob("*.py")}
+        assert jax_mods <= port_mods, sorted(jax_mods - port_mods)
     # a counterpart of every module of the JAX package's core
     jax_core = {p.name for p in (ROOT / "src" / "repro" / "core").glob("*.py")}
     port_core = {p.name for p in (ROOT / "src" / "repro_torch" / "core").glob("*.py")}

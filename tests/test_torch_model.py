@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import MoEConfig as JaxMoEConfig
 from repro.configs import get_config as jax_config
 from repro.core.artifact import FunctionSpec as JaxSpec
 from repro.core.deploy import make_serve_fn as jax_serve_fn
@@ -63,11 +64,25 @@ def test_config_copy_equals_jax_field_by_field(reduced):
 
 
 def test_other_families_are_not_yet_ported():
+    """Once refused, MoE on the uniform stack is ported: a llama with 4
+    experts builds the JAX package's param specs and cache specs (paths,
+    shapes, dtypes)."""
     moe = dataclasses.replace(get_config("llama3.2-3b").reduced(),
                               moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        uniform_specs(moe, torch.float32)
-    assert isinstance(moe, ArchConfig)
+    jmoe = dataclasses.replace(jax_config("llama3.2-3b").reduced(),
+                               moe=JaxMoEConfig(n_experts=4, top_k=2, d_ff_expert=64))
+    assert isinstance(moe, ArchConfig) and dataclasses.asdict(moe) == dataclasses.asdict(jmoe)
+    from repro_torch import pytree
+    jm, tm = jax_build(jmoe, 16), build_model(moe, 16)
+    for jspec, tspec in ((jm.param_specs(), tm.param_specs()),
+                         (jm.cache_specs(1, 16), tm.cache_specs(1, 16))):
+        jd = [(jax.tree_util.keystr(p), s.shape, np.dtype(s.dtype).name) for p, s in
+              jax.tree_util.tree_flatten_with_path(
+                  jspec, is_leaf=lambda s: hasattr(s, "axes"))[0]]
+        td = [(p, s.shape, str(s.dtype).replace("torch.", ""))
+              for p, s in pytree.flatten_with_paths(tspec, is_leaf=tl.is_spec)]
+        assert td == jd
+    assert uniform_specs(moe, torch.float32)["layers"]["moe"]["w_up"].shape == (2, 4, 128, 64)
 
 
 # ----------------------------------------------------------------------- params

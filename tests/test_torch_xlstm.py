@@ -121,15 +121,20 @@ def _port_config(jcfg) -> ArchConfig:
 @pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b", "whisper-medium",
                                   "qwen2-vl-2b"])
 def test_other_families_still_raise_not_implemented(arch):
-    """MoE on the uniform stack, encoder-decoder and vision configs (built
-    from the JAX package's own, reduced) go through the dispatchers and are
-    refused."""
-    cfg = _port_config(jax_config(arch).reduced())
-    model = build_model(cfg, 16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        model.param_specs()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        model.cache_specs(1, 16)
+    """Once refused, MoE on the uniform stack, encoder-decoder and vision
+    configs (built from the JAX package's own, reduced) are ported: through
+    the dispatchers they build the JAX package's param specs and cache specs
+    (paths, shapes, dtypes)."""
+    jcfg = jax_config(arch).reduced()
+    jm, tm = jax_build(jcfg, 16), build_model(_port_config(jcfg), 16)
+    for jspec, tspec in ((jm.param_specs(), tm.param_specs()),
+                         (jm.cache_specs(1, 16), tm.cache_specs(1, 16))):
+        jd = [(jax.tree_util.keystr(p), s.shape, np.dtype(s.dtype).name) for p, s in
+              jax.tree_util.tree_flatten_with_path(
+                  jspec, is_leaf=lambda s: hasattr(s, "axes"))[0]]
+        td = [(p, s.shape, str(s.dtype).replace("torch.", ""))
+              for p, s in pytree.flatten_with_paths(tspec, is_leaf=tl.is_spec)]
+        assert td == jd
 
 
 # ----------------------------------------------------------------------- params
