@@ -16,7 +16,7 @@ The stages are the JAX package's, under its names, so timelines compare:
 ``RestoreWeightsHost`` (a delta restore through the host's chunk tier for v2
 snapshots, mmap for v1, the generic checkpoint's parse + cast for the
 cold_jit drivers), ``DevicePut`` and ``Finalize``; ``TraceCompile`` (a fresh
-``torch.export`` trace); the pool and donor stages ``AliasDonor``,
+``torch.export`` trace, compiled with AOTInductor); the pool and donor stages ``AliasDonor``,
 ``ReuseDonor``, ``PoolCheckout``, ``FetchParked``. A stage that took a tier
 path records under the name of the path (``fetch_program_cached``,
 ``fetch_peer``, ``restore_weights_cached``, ``restore_delta`` with
@@ -251,37 +251,75 @@ class DeserializeProgram(Stage):
             ctx.program_entry = None
 
 
+def fake_inputs(param_specs, token_shape: Tuple[int, int], device):
+    """(mode, params, tokens): ``FakeTensor``s of ``device`` in a new
+    ``FakeTensorMode`` for the parameter tree ``param_specs`` (shapes and
+    dtypes) and int32 tokens of ``token_shape``. Nothing is allocated; run
+    code on them inside ``mode``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    # the device with its index ("cuda:0" for "cuda"), as deploy's weights
+    # carry it into the graph it compiles
+    device = torch.empty(0, device=device).device
+    mode = FakeTensorMode()
+    with mode:
+        params = pytree.tree_map(
+            lambda s: torch.empty(s.shape, dtype=s.dtype, device=device), param_specs)
+        tokens = torch.empty(token_shape, dtype=torch.int32, device=device)
+    return mode, params, tokens
+
+
+def export_on_fakes(dep, rows: Optional[int] = None) -> torch.export.ExportedProgram:
+    """A new trace of ``dep``'s serve program at ``rows`` token rows (None:
+    the request shape) on ``FakeTensor``s of the deployment's device: no
+    weights are read or allocated."""
+    _, params, tokens = fake_inputs(dep.abstract_params(), dep.abstract_tokens_for(rows),
+                                    dep.device)
+    fresh = type(dep.serve_fn)(dep.model, dep.spec)     # a new module: a new trace
+    return torch.export.export(fresh, (params, tokens))
+
+
 class TraceCompile(Stage):
-    """The Docker-stack tier: re-trace the serve program at boot.
+    """The Docker-stack tier: re-trace and compile the serve program at boot.
 
     The JAX package re-traces and compiles with a fresh ``jax.jit``. The
-    port's image program *is* a ``torch.export`` trace, so this stage is a
-    fresh ``torch.export.export`` of a new ``ServeProgram`` at the request
-    shape, then ``slim`` and ``.module()`` — the same work deploy does. It
-    traces on ``FakeTensor``s of the deployment's device, not on ``meta``
-    tensors: export bakes the device of tensors ``forward`` allocates (the
-    KV cache) into the graph, and fakes carry the real device without
-    allocating the weights. No code is compiled, so the disk cache of
-    :func:`repro_torch.core.compile_cache.enable_inductor_disk_cache` has
-    nothing to absorb here yet (ROADMAP A3b).
+    port re-traces a new ``ServeProgram`` with ``torch.export`` at the
+    request (or bucket) shape, compiles it with AOTInductor as deploy does
+    (:func:`repro_torch.core.compile_cache.compile_package`) and loads the
+    package. It traces and compiles on ``FakeTensor``s of the deployment's
+    device, not on ``meta`` tensors: export bakes the device of tensors
+    ``forward`` allocates (the KV cache) into the graph, and fakes carry the
+    real device without allocating the weights, so the compile holds no
+    second copy of them.
+
+    ``cached=False`` (``cold_jit``) compiles with every cache off;
+    ``cached=True`` (``cold_jit_cached``) compiles through the compiled-package
+    cache in the directory :func:`repro_torch.core.compile_cache.
+    enable_inductor_disk_cache` names: a boot reads back the package of the
+    same trace that deploy, or an earlier boot, compiled through it, and the
+    first boot of a shape nobody compiled fills it. Boots that trace and
+    compile at once take turns (:func:`repro_torch.core.compile_cache.
+    build_slot`). The parts land in ``stage_s`` as ``trace``, ``compile`` and
+    ``load`` beside ``trace_compile``; the turn's wait is in none of them.
     """
 
     name = "trace_compile"
     track = TRACK_PROGRAM
 
-    def run(self, ctx: BootContext) -> None:
-        from torch._subclasses.fake_tensor import FakeTensorMode
+    def __init__(self, cached: bool = False) -> None:
+        self.cached = cached
 
-        from repro_torch.core.compile_cache import slim
-        dep = ctx.dep
-        with FakeTensorMode():
-            params = pytree.tree_map(
-                lambda s: torch.empty(s.shape, dtype=s.dtype, device=dep.device),
-                dep.abstract_params())
-            tokens = torch.empty(dep.abstract_tokens_for(ctx.bucket_rows),
-                                 dtype=torch.int32, device=dep.device)
-        fresh = type(dep.serve_fn)(dep.model, dep.spec)     # a new module: a new trace
-        ctx.program = slim(torch.export.export(fresh, (params, tokens))).module()
+    def run(self, ctx: BootContext) -> None:
+        from repro_torch.core.compile_cache import CompileCache, build_slot, compile_package
+        with build_slot():                      # another boot's trace + compile first
+            t0 = now()
+            exported = export_on_fakes(ctx.dep, ctx.bucket_rows)
+            t1 = now()
+            package = compile_package(exported, disable_caches=not self.cached)
+            del exported
+            t2 = now()
+        ctx.program = CompileCache.load_package(package)
+        self.extra_s = {"trace": t1 - t0, "compile": t2 - t1, "load": now() - t2}
 
 
 class RestoreWeightsHost(Stage):

@@ -4,17 +4,20 @@
   1. build the model and the single-purpose serve program (prefill + K greedy
      decode steps, the K steps unrolled into one program — nothing generic),
   2. init the weights on the device from ``spec.seed``,
-  3. export the serve program with ``torch.export``, save it into the
-     CompileCache, load it back and run it once on probe tokens: the image is
-     accepted only if the loaded program gives the eager program's tokens,
-     and deploy raises otherwise (the JAX package's in-process fallback for
-     XLA:CPU's AOT loader has no counterpart here),
-  4. for streamed boots, export the head/tail split of the same program
-     (``HeadProgram``: prefill + the first token; ``TailProgram``: the decode
-     steps), save both under their derived keys, load them back, and accept
-     the split (``split_ok``) only if head + tail give the fused program's
-     tokens bit for bit — otherwise the keys are evicted and the streamed
-     driver boots the fused program,
+  3. export the serve program with ``torch.export``, compile it ahead of
+     time with AOTInductor into a ``.pt2`` package
+     (:func:`repro_torch.core.compile_cache.compile_package`), save the
+     package into the CompileCache, load it back and run it once on probe
+     tokens: the image is accepted only if the loaded program gives the
+     eager program's tokens, and deploy raises otherwise (the JAX package's
+     in-process fallback for XLA:CPU's AOT loader has no counterpart here;
+     a program that fails to compile or load raises too),
+  4. for streamed boots, export and compile the head/tail split of the same
+     program (``HeadProgram``: prefill + the first token; ``TailProgram``:
+     the decode steps), save both packages under their derived keys, load
+     them back, and accept the split (``split_ok``) only if head + tail give
+     the fused program's tokens bit for bit — otherwise the keys are evicted
+     and the streamed driver boots the fused program,
   5. walk the exported graph once for the leaves' first-use order
      (:func:`first_use_order`) and write the weight snapshot with it (v2
      chunks when the store has a blob store, as the Gateway's does; v1 files
@@ -22,7 +25,10 @@
 
 ``Deployment.ensure_decode`` builds the continuous-batching decode bundle
 (the admit and step programs of :mod:`repro_torch.core.decode`) once per
-deployment, under the same export -> save -> load -> verify rule.
+deployment, under the same export -> save -> load -> verify rule; its two
+programs are stored as ``torch.export`` programs, not compiled. Each
+program is stored in the format :data:`PROGRAM_FORMATS` gives its kind
+(``_publish``), and the manifest's ``program_formats`` is that table.
 ``Deployment.ensure_generic`` writes the generic checkpoint of the cold_jit
 drivers once per deployment, when the first such boot plans (the JAX package
 writes it in ``deploy``; at jamba's size it is a 65 GB float32 file, so the
@@ -30,19 +36,26 @@ port writes it only for a deployment that is booted that way).
 
 ``Deployment.ensure_bucket`` builds the coalescer's bucket program for a
 batch of ``rows`` token rows (``repro_torch.core.batching``), once per
-bucket, under the same export -> save -> load -> verify rule; it is keyed by
-``bucket_image_key`` and has no head/tail split. ``ensure_buckets`` builds
+bucket, under the same export -> compile -> save -> load -> verify rule; it
+is keyed by ``bucket_image_key`` and has no head/tail split. ``ensure_buckets`` builds
 several, restoring the snapshot's weights to the device once for all. The JAX package's
 in-process fallback for a bucket its loader refuses is not ported: a bucket
-that fails to export, load or verify raises.
+that fails to export, compile, load or verify raises.
+
+``precompile`` compiles a spec's serve, head and tail programs into the
+compiled-package cache before it is deployed, traced on fake tensors
+(``trace_on_fakes``): a build process can fill the cache while another
+process serves, and the later ``deploy`` reads the packages back and
+verifies them under the rules above.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import operator
 import threading
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,9 +64,10 @@ from torch import nn
 
 from repro_torch.configs import get_config
 from repro_torch.core.artifact import ExecutorImage, FunctionSpec, ImageManifest
-from repro_torch.core.boot import streamed_device_put
+from repro_torch.core.boot import fake_inputs, streamed_device_put
 from repro_torch.core.compile_cache import (
-    CompileCache, decode_admit_key, decode_step_key, head_key, slim, tail_key,
+    AOTI, TORCH_EXPORT, CompileCache, aoti_package_key_parts, build_slot, compile_package,
+    decode_admit_key, decode_step_key, head_key, slim, tail_key,
 )
 from repro_torch.core.executor import synchronize
 from repro_torch.core.metrics import now
@@ -167,6 +181,25 @@ _VIEW_OPS = {
     torch.ops.aten.expand.default, torch.ops.aten.squeeze.dim,
     torch.ops.aten.unsqueeze.default,
 }
+
+
+# The format each kind of program is stored in: the serve path's programs are
+# AOTInductor packages; the decode bundle's admit and step programs stay
+# ``torch.export`` programs (their in-place pool writes are not compiled yet).
+PROGRAM_FORMATS = {"serve": AOTI, "head": AOTI, "tail": AOTI, "bucket": AOTI,
+                   "decode_admit": TORCH_EXPORT, "decode_step": TORCH_EXPORT}
+
+
+def _publish(cache: CompileCache, kind: str, key: str, exported, lap=None) -> int:
+    """Store ``exported`` under ``key`` in the format of ``kind``: compiled
+    into a package (``lap("compile")`` after the compile, when given), or
+    slimmed and saved. Returns the payload's bytes."""
+    if PROGRAM_FORMATS[kind] == AOTI:
+        package = compile_package(exported)
+        if lap is not None:
+            lap("compile")
+        return cache.put_package(key, package)
+    return cache.put_program(key, slim(exported))
 
 
 def _keystr(path) -> str:
@@ -364,15 +397,16 @@ class Deployment:
         return (self.base_rows if rows is None else rows, self.spec.prompt_len)
 
     def ensure_bucket(self, rows: int) -> None:
-        """Export, save, load and verify the serve program for a coalesced
-        batch of ``rows`` token rows.
+        """Export, compile, save, load and verify the serve program for a
+        coalesced batch of ``rows`` token rows.
 
         One build per bucket, ever — every later batch rounded to this bucket
         boots the saved program exactly like the base one. The program is
         exported with ``torch.export`` at ``[rows, prompt_len]`` on the
-        snapshot's weights, saved under ``bucket_image_key(rows)``, loaded
-        back, and run beside the eager program on seeded probe tokens; a
-        difference raises, and nothing is registered.
+        snapshot's weights, compiled with AOTInductor, saved under
+        ``bucket_image_key(rows)``, loaded back, and run beside the eager
+        program on seeded probe tokens; a difference raises, and nothing is
+        registered.
         """
         self.ensure_buckets((rows,))
 
@@ -407,9 +441,9 @@ class Deployment:
                                               self.abstract_tokens_for(rows),
                                               dtype=np.int32)).to(dev)
         fn = make_serve_fn(self.model, self.spec)
-        exported = slim(torch.export.export(fn, (params, probe)))
+        exported = torch.export.export(fn, (params, probe))
         lap("export")
-        self.cache.put_program(key, exported)
+        _publish(self.cache, "bucket", key, exported, lap)
         del exported
         lap("save")
         program = self.cache.load_program(key)
@@ -525,12 +559,12 @@ class Deployment:
         admit_fn = make_admit_fn(model, max_pages, page_size)
         step_fn = make_step_fn(model)
         lap("restore")
-        admit_x = slim(torch.export.export(admit_fn, (params,) + admit_args))
-        step_x = slim(torch.export.export(step_fn, (params,) + step_args))
+        admit_x = torch.export.export(admit_fn, (params,) + admit_args)
+        step_x = torch.export.export(step_fn, (params,) + step_args)
         lap("export")
         key = self.image.key
-        self.cache.put_program(decode_admit_key(key), admit_x)
-        self.cache.put_program(decode_step_key(key), step_x)
+        _publish(self.cache, "decode_admit", decode_admit_key(key), admit_x)
+        _publish(self.cache, "decode_step", decode_step_key(key), step_x)
         lap("save")
         admit_p = self.cache.load_program(decode_admit_key(key))
         step_p = self.cache.load_program(decode_step_key(key))
@@ -566,30 +600,35 @@ class Deployment:
                             (self.spec.batch_size, self.spec.prompt_len), dtype=np.int32)
 
 
+def _split_args(model: Model, spec: FunctionSpec, params, tokens, mode=None):
+    """The head and tail programs of ``spec``, each with what it is traced
+    on: ``(kind, module, args)``. The tail's arguments are the head's outputs
+    on ``params`` and ``tokens``, computed in ``mode`` (the
+    ``FakeTensorMode`` of fake inputs; None: eagerly)."""
+    head_fn, tail_fn = make_head_fn(model, spec), make_tail_fn(model, spec)
+    with mode or contextlib.nullcontext(), torch.no_grad():
+        _tok0, logits, inner = head_fn(params, tokens)
+    return (("head", head_fn, (params, tokens)), ("tail", tail_fn, (params, logits, inner)))
+
+
 def _build_split(spec: FunctionSpec, model: Model, cache: CompileCache, key: str,
                  params, probe_tokens, fused_out) -> bool:
-    """Export, save and load the head and tail programs of ``spec``; True only
-    if head + tail give ``fused_out`` (the loaded fused program's tokens on
-    ``probe_tokens``) bit for bit, and token 0 equals its first column."""
-    try:
-        head_fn, tail_fn = make_head_fn(model, spec), make_tail_fn(model, spec)
-        with torch.no_grad():
-            _tok0, logits, inner = head_fn(params, probe_tokens)
-        head_x = slim(torch.export.export(head_fn, (params, probe_tokens)))
-        tail_x = slim(torch.export.export(tail_fn, (params, logits, inner)))
-        del logits, inner
-        cache.put_program(head_key(key), head_x)
-        cache.put_program(tail_key(key), tail_x)
-        head_p = cache.load_program(head_key(key))
-        tail_p = cache.load_program(tail_key(key))
-        with torch.inference_mode():
-            tok0, logits, inner = head_p(params, probe_tokens)
-            split_out = tail_p(params, logits, inner)
-        synchronize(probe_tokens.device)
-        return bool(split_out.shape == fused_out.shape and torch.equal(split_out, fused_out)
-                    and torch.equal(tok0[:, 0], fused_out[:, 0]))
-    except Exception:  # noqa: BLE001 - the split is an optimisation: boot fused
-        return False
+    """Export, compile, save and load the head and tail programs of ``spec``;
+    True only if head + tail give ``fused_out`` (the loaded fused program's
+    tokens on ``probe_tokens``) bit for bit, and token 0 equals its first
+    column. A program that fails to compile or load raises."""
+    keys = {"head": head_key(key), "tail": tail_key(key)}
+    for kind, fn, args in _split_args(model, spec, params, probe_tokens):
+        _publish(cache, kind, keys[kind], torch.export.export(fn, args))
+    del fn, args
+    head_p = cache.load_program(head_key(key))
+    tail_p = cache.load_program(tail_key(key))
+    with torch.inference_mode():
+        tok0, logits, inner = head_p(params, probe_tokens)
+        split_out = tail_p(params, logits, inner)
+    synchronize(probe_tokens.device)
+    return bool(split_out.shape == fused_out.shape and torch.equal(split_out, fused_out)
+                and torch.equal(tok0[:, 0], fused_out[:, 0]))
 
 
 def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
@@ -622,9 +661,12 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
     # 1) the program -> compile cache ("unikernel image build")
     probe_tokens = torch.zeros((spec.batch_size, spec.prompt_len), dtype=torch.int32,
                                device=device)
-    exported = slim(torch.export.export(serve_fn, (params, probe_tokens)))
+    exported = torch.export.export(serve_fn, (params, probe_tokens))
     lap("export")
-    program_bytes = cache.put_program(key, exported)
+    # what the compiled-package cache keys this program by: a later trace of
+    # the same shape (TraceCompile) is held against it
+    key_parts = aoti_package_key_parts(exported)
+    program_bytes = _publish(cache, "serve", key, exported, lap)
     lap("save")
     # deploy-time verification: boot the saved image once and run it
     program = cache.load_program(key)
@@ -650,7 +692,7 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
 
     # 1c) which leaf does execution compute with first? Persisted into the
     # snapshot index so a streamed restore moves leaves in that order
-    use_order = first_use_order(exported)
+    use_order = first_use_order(slim(exported))
     # the head program reads the whole parameter tree, so serving the first
     # request needs every leaf resident
     head_leaves = [p for p, _ in pytree.flatten_with_paths(params)] if split_ok else []
@@ -660,7 +702,9 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
     snapshot_bytes = snapshots.save(key, params, first_use_order=use_order)
     lap("snapshot")
     build_seconds = now() - t_begin
-    extra = {"program_format": "torch.export", "device": str(device),
+    extra = {"program_format": PROGRAM_FORMATS["serve"],
+             "program_formats": dict(PROGRAM_FORMATS), "package_key_parts": key_parts,
+             "device": str(device),
              "split_serve": split_ok, "first_use_order_len": len(use_order)}
     if snapshots.blobs is not None:
         # chunked (v2) snapshot: the manifest geometry, for dedup reports
@@ -682,3 +726,41 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
                       generic_ckpt=f"{work_dir}/{key}_generic.npz", build_s=times,
                       first_use_order=use_order, head_leaves=head_leaves,
                       split_ok=split_ok)
+
+
+def trace_on_fakes(spec: FunctionSpec, device="cuda") -> Iterator[
+        Tuple[str, torch.export.ExportedProgram]]:
+    """The serve, head and tail programs that ``deploy`` of ``spec`` on
+    ``device`` compiles, traced on ``FakeTensor``s from the parameters'
+    shapes alone: no weight is read or allocated. Yields ``(kind, program)``,
+    the serve program first."""
+    cfg = get_config(spec.arch)
+    if spec.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg, max_seq=spec.prompt_len + spec.decode_steps)
+    mode, params, tokens = fake_inputs(model.param_specs(),
+                                       (spec.batch_size, spec.prompt_len), device)
+    yield "serve", torch.export.export(make_serve_fn(model, spec), (params, tokens))
+    for kind, fn, args in _split_args(model, spec, params, tokens, mode):
+        yield kind, torch.export.export(fn, args)
+
+
+def precompile(spec: FunctionSpec, device="cuda") -> Dict[str, float]:
+    """Compile the serve, head and tail programs of ``spec`` for ``device``
+    into the compiled-package cache (:func:`compile_package`) before it is
+    deployed, from shapes alone (:func:`trace_on_fakes`): a build process
+    fills the cache, and a later ``deploy`` of the same spec, in this process
+    or another on the same cache directory, reads the packages back instead
+    of compiling. Deploy's rules still hold what it reads: the token gate
+    against eager and the split's bit-identity. Returns seconds by
+    ``<kind>_trace`` and ``<kind>_compile``."""
+    times: Dict[str, float] = {}
+    t = now()
+    with build_slot():
+        for kind, exported in trace_on_fakes(spec, device):
+            times[f"{kind}_trace"] = now() - t
+            t = now()
+            compile_package(exported)
+            times[f"{kind}_compile"] = now() - t
+            t = now()
+    return times

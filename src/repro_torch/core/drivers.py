@@ -11,17 +11,19 @@ Ordered fastest -> slowest start, with their Sec II/III analogues:
 | unikernel_stream  | unikernel + lazy restore        | head program || first-use stream    |
 | paused            | Fn paused containers/Firecracker| cached program + host RAM -> device |
 | warm              | warm Lambda / warm Fn-Docker    | pool checkout (no work, holds HBM)  |
-| cold_jit_cached   | gVisor/runc                     | re-trace + compile cache + ckpt     |
-| cold_jit          | full Docker stack               | re-trace + ckpt                     |
+| cold_jit_cached   | gVisor/runc                     | re-trace + compile-cache hit + ckpt |
+| cold_jit          | full Docker stack               | re-trace + full compile + ckpt      |
 
 Every driver is a declaration: ``plan(dep)`` returns a BootPlan over the
 shared stage vocabulary in :mod:`repro_torch.core.boot`, and the shared
 ``start`` hands it to the BootEngine, which times every stage into
 ``Timeline.stage_s`` and overlaps the program and weights tracks.
 
-The port's ``TraceCompile`` is a fresh ``torch.export`` trace with no
-compile step, so ``cold_jit_cached`` and ``cold_jit`` run the same work
-until the programs are compiled with AOTInductor (ROADMAP A3b).
+The port's ``TraceCompile`` re-traces with ``torch.export`` and compiles
+with AOTInductor: ``cold_jit`` with every compile cache off, so each boot
+pays the whole compile; ``cold_jit_cached`` through the compiled-package
+cache, so a boot reads back the package deploy (or an earlier boot of its
+shape) compiled through that cache.
 
 Invariants: a driver instance belongs to one Host's table (``host``), so its
 boots consult that host's tiered artifact cache; only READY executors
@@ -282,21 +284,26 @@ class ColdJITDriver(Driver):
     supports_preboot = True
     supports_batch = True          # TraceCompile re-traces at the bucket shape
 
+    cached = False                 # TraceCompile with every compile cache off
+
     def plan(self, dep: Deployment) -> BootPlan:
         dep.ensure_generic()
         return BootPlan([
-            TraceCompile(),                                  # program track
+            TraceCompile(cached=self.cached),                # program track
             RestoreWeightsHost("generic"), DevicePut(),      # weights track
             Finalize(),
         ])
 
 
 class ColdJITCachedDriver(ColdJITDriver):
-    """gVisor tier: still re-traces, with PyTorch's persistent compile cache
-    to absorb the compile (:func:`repro_torch.core.compile_cache.
-    enable_inductor_disk_cache`) — which the port's trace does not have yet."""
+    """gVisor tier: still re-traces, and compiles through the persistent
+    compiled-package cache (in the directory :func:`repro_torch.core.
+    compile_cache.enable_inductor_disk_cache` names), so a boot reads back
+    the package deploy, or an earlier boot of its shape, compiled through it
+    instead of compiling."""
 
     name = "cold_jit_cached"
+    cached = True
 
 
 ALL_DRIVERS = ("process", "fork", "unikernel", "unikernel_stream", "paused",

@@ -722,7 +722,18 @@ class PreBootPlanner:
 
         parked.ttl_entry = self.timer.schedule(self.cfg.preboot_ttl_s, expire)
         with self._lock:
-            self._parked.setdefault(key, []).append(parked)
+            stopped = self._stopped
+            if not stopped:
+                self._parked.setdefault(key, []).append(parked)
+        if stopped:
+            # a tick that passed its stop check before ``stop`` ran launched
+            # this boot after ``stop`` flushed the parked ones: drop it here
+            parked.ttl_entry.cancel()
+            try:
+                handle.cancel()
+            except Exception:
+                pass
+            return
         self.preboots_planned += 1
 
     # ------------------------------------------------------------- serving

@@ -19,6 +19,12 @@ any device and count no launches; being one node each, they keep a prompt's
 hundreds of sLSTM steps and each decode step's recurrent arithmetic out of
 the exported graph, whose size sets the cold start's deserialize time.
 
+``flash_attention``, ``mlstm``, ``selective_scan`` and ``slstm_scan`` have
+an autograd formula: the backward recomputes the VJP of the op's plain
+version (:mod:`repro_torch.kernels.ref`) on the saved inputs, as the JAX
+package differentiates its flash kernel through the reference. Nothing on
+the serve path runs a backward.
+
 The route depends on the tensors' device, never on probing the hardware:
 
 * a CPU tensor runs the plain version;
@@ -226,11 +232,71 @@ def _(gates, r, b_in, c, n, h, m):
             torch.empty_like(h), torch.empty_like(m))
 
 
+# ------------------------------------------------------------------ autograd
+
+def _vjp_of(plain, n_tensors: int):
+    """A ``register_autograd`` backward for a custom op whose first
+    ``n_tensors`` arguments are tensors (or None): recompute ``plain`` on
+    those inputs under autograd and return its vector-Jacobian product, as
+    the JAX package's flash attention does (``_flash_bwd`` is the
+    reference's VJP). ``plain`` maps the op's arguments to its outputs."""
+
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[n_tensors:]
+        ctx.save_for_backward(*[t if t is not None else torch.empty(0)
+                                for t in inputs[:n_tensors]])
+        ctx.present = [t is not None for t in inputs[:n_tensors]]
+
+    def backward(ctx, *grads):
+        leaves = [t.detach().requires_grad_(t.is_floating_point()) if here else None
+                  for t, here in zip(ctx.saved_tensors, ctx.present)]
+        with torch.enable_grad():
+            outs = plain(*leaves, *ctx.args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+            wrt = [t for t in leaves if t is not None and t.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                           [g for _, g in pairs], allow_unused=True))
+        dx = [next(got) if t is not None and t.requires_grad else None for t in leaves]
+        return (*dx, *[None] * len(ctx.args))
+
+    return backward, setup_context
+
+
+def _flash_plain(q, k, v, causal, q_offset):
+    return ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def _mlstm_plain(q, k, v, i_raw, f_raw, C, n, m):
+    h, (C, n, m) = ref.mlstm_chunked(q, k, v, i_raw, f_raw,
+                                     state=None if C is None else (C, n, m))
+    return h, C, n, m
+
+
+for _op, _plain, _n in ((_flash_attention_op, _flash_plain, 3),
+                        (_mlstm_op, _mlstm_plain, 8),
+                        (_selective_scan_op, ref.selective_scan, 7),
+                        (_slstm_scan_op, ref.slstm_scan, 7)):
+    _bwd, _setup = _vjp_of(_plain, _n)
+    _op.register_autograd(_bwd, setup_context=_setup)
+
+
 # ------------------------------------------------------------------ entry points
+#
+# Every tensor an op reads but does not write is passed dense (``_dense``).
+# An AOTInductor program hands a strided view (a column slice of a
+# projection) to a Python custom op with the wrong layout: jamba's decode
+# step read ``proj[:, dtr:dtr + ds]`` as garbage until its inputs were made
+# contiguous. ``contiguous()`` of a dense tensor is the tensor itself.
+
+
+def _dense(*tensors):
+    return tuple(t.contiguous() for t in tensors)
+
 
 def attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """GQA attention. q: [B,Sq,Hq,D]; k,v: [B,Skv,Hkv,D] -> [B,Sq,Hq,D]."""
-    return torch.ops.repro_torch.flash_attention(q, k, v, causal, int(q_offset))
+    return torch.ops.repro_torch.flash_attention(*_dense(q, k, v), causal, int(q_offset))
 
 
 def decode_attention(q, k_cache, v_cache, length):
@@ -238,7 +304,7 @@ def decode_attention(q, k_cache, v_cache, length):
     length: int, or int32 tensor [] / [B]."""
     B = q.shape[0]
     length = torch.as_tensor(length, dtype=torch.int32, device=q.device).expand(B)
-    return torch.ops.repro_torch.decode_attention(q, k_cache, v_cache, length.contiguous())
+    return torch.ops.repro_torch.decode_attention(*_dense(q, k_cache, v_cache, length))
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths):
@@ -248,16 +314,15 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths):
     B = q.shape[0]
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device).expand(B)
     return torch.ops.repro_torch.paged_decode_attention(
-        q, k_pages, v_pages, page_table.to(torch.int32).contiguous(), lengths.contiguous())
+        *_dense(q, k_pages, v_pages, page_table.to(torch.int32), lengths))
 
 
 def mlstm(q, k, v, i_raw, f_raw, state=None):
     """Chunkwise mLSTM. q, k: [B,S,H,Dk]; v: [B,S,H,Dv]; i_raw, f_raw: [B,S,H];
     state: optional (C [B,H,Dk,Dv], n [B,H,Dk], m [B,H]) to start from.
     Returns (h [B,S,H,Dv] in q's dtype, (C, n, m) in f32)."""
-    C, n, m = (None, None, None) if state is None else state
-    h, C, n, m = torch.ops.repro_torch.mlstm(q.contiguous(), k.contiguous(), v.contiguous(),
-                                             i_raw, f_raw, C, n, m)
+    C, n, m = (None, None, None) if state is None else _dense(*state)
+    h, C, n, m = torch.ops.repro_torch.mlstm(*_dense(q, k, v, i_raw, f_raw), C, n, m)
     return h, (C, n, m)
 
 
@@ -265,24 +330,25 @@ def selective_scan(x, dt, a_log, b, c, d_skip, h0=None):
     """Mamba selective scan. x, dt: [B,S,Di]; a_log: [Di,Ds]; b, c: [B,S,Ds];
     d_skip: [Di]; h0: optional [B,Di,Ds] -> (y [B,S,Di] in x's dtype,
     h_final [B,Di,Ds] f32)."""
-    return torch.ops.repro_torch.selective_scan(x, dt, a_log, b, c, d_skip, h0)
+    h0 = None if h0 is None else h0.contiguous()
+    return torch.ops.repro_torch.selective_scan(*_dense(x, dt, a_log, b, c, d_skip), h0)
 
 
 def slstm_scan(gates, r, b_in, c, n, h, m):
     """The sLSTM over a sequence. gates: [B,S,4d]; r: [H,dh,4dh]; b_in: [4d]
     f32; c, n, h, m: [B,d] f32 -> (hs [B,S,d] f32, c, n, h, m)."""
-    return torch.ops.repro_torch.slstm_scan(gates, r, b_in, c, n, h, m)
+    return torch.ops.repro_torch.slstm_scan(*_dense(gates, r, b_in, c, n, h, m))
 
 
 def mamba_step(x_t, dt_t, a_log, b_t, c_t, d_skip, h):
     """One Mamba decode step (``ref.mamba_step``), the state ``h`` [B,Di,Ds]
     f32 updated in place. x_t, dt_t: [B,Di]; b_t, c_t: [B,Ds] -> y [B,Di] in
     x_t's dtype."""
-    return torch.ops.repro_torch.mamba_step(x_t, dt_t, a_log, b_t, c_t, d_skip, h)
+    return torch.ops.repro_torch.mamba_step(*_dense(x_t, dt_t, a_log, b_t, c_t, d_skip), h)
 
 
 def mlstm_step(q_t, k_t, v_t, i_t, f_t, state):
     """One mLSTM decode step (``ref.mlstm_step``), the state updated in place.
     q_t, k_t: [B,H,Dk]; v_t: [B,H,Dv]; i_t, f_t: [B,H]; state (C, n, m) f32
     -> h [B,H,Dv] in q_t's dtype."""
-    return torch.ops.repro_torch.mlstm_step(q_t, k_t, v_t, i_t, f_t, *state)
+    return torch.ops.repro_torch.mlstm_step(*_dense(q_t, k_t, v_t, i_t, f_t), *state)

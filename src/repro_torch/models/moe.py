@@ -2,8 +2,9 @@
 dispatch with GShard-style capacity.
 
 Dispatch: flatten tokens -> top-k expert ids -> stable argsort by expert ->
-position-in-expert via searchsorted -> scatter into a dense [E, C, d] buffer
-(row E*C takes what capacity drops) -> batched expert GEMMs -> gather-combine
+position-in-expert via searchsorted -> a dense [E, C, d] buffer gathered
+from the sorted entries (what capacity drops stays out) -> batched expert
+GEMMs -> gather-combine
 with the router gates, in the model dtype, summed per token in a fixed
 order. The JAX package's second mode, the per-data-shard dispatch
 ``_moe_forward_local``, runs only under sharding rules that ask for it; the
@@ -101,9 +102,16 @@ def moe_forward(cfg, p: dict, x: torch.Tensor, *, capacity_factor: float,
     keep = pos_in_e < C
     slot = torch.where(keep, fe_s * C + pos_in_e, E * C)               # E*C = trash row
 
-    gathered = torch.where(keep[:, None], xt[ftok_s], 0)               # [T*k, d]
-    buf = x.new_zeros((E * C + 1, d)).index_add_(0, slot, gathered.to(x.dtype))
-    out = _expert_gemms(cfg, p, buf[:E * C].reshape(E, C, d))          # [E, C, d]
+    # The dispatch buffer, by gathers: row (e, c) holds expert e's c-th
+    # sorted entry when it has one (the buffer the JAX package scatters
+    # into). An ``index_add_`` here goes through AOTInductor's op fallback
+    # on CUDA, which passes its arguments wrong; a gather compiles to
+    # generated code.
+    ends = torch.cat([starts[1:], starts.new_full((1,), T * k)])
+    src = starts[:, None] + torch.arange(C, device=x.device)[None, :]  # [E, C]
+    filled = src < ends[:, None]
+    buf = torch.where(filled[..., None], xt[ftok_s[torch.clamp(src, max=T * k - 1)]], 0)
+    out = _expert_gemms(cfg, p, buf)                                   # [E, C, d]
 
     # ---- combine, in the model dtype (gates sum to 1: <= top_k terms) ----
     # The JAX package scatter-adds the sorted terms into their tokens; here

@@ -46,6 +46,20 @@ def _causal_depthwise_conv(x, w, b, history=None):
     return out.to(x.dtype) + b.to(x.dtype), new_history
 
 
+def _conv_step(window, w, b):
+    """One decode step of :func:`_causal_depthwise_conv`: window [B,cw,C]
+    (the history, then the new input) -> [B,C], the taps summed in f32 in
+    the same order. A bf16 product is exact in f32, so an AOTInductor
+    program gives eager's bits here; it lowers the ``einsum`` of the JAX
+    package's decode step to code that rounds otherwise, and flipped
+    greedy tokens of a bf16 xlstm against eager."""
+    wf = w.float()
+    out = window[:, 0].float() * wf[0]
+    for j in range(1, window.shape[1]):
+        out = out + window[:, j].float() * wf[j]
+    return out.to(window.dtype) + b.to(window.dtype)
+
+
 # ============================================================================ Mamba
 
 def mamba_dims(cfg):
@@ -107,7 +121,7 @@ def mamba_step(cfg, p: dict, x_t: torch.Tensor, state):
     conv_state, ssm_state = state
     xi, z = torch.matmul(x_t, p["in_proj"]).split(d_in, dim=-1)      # [B,1,di]
     window = torch.cat([conv_state.to(xi.dtype), xi], dim=1)          # [B,cw,di]
-    xc = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"].to(xi.dtype)) + p["conv_b"])
+    xc = F.silu(_conv_step(window, p["conv_w"], p["conv_b"]))
     proj = torch.matmul(xc, p["x_proj"])
     dt = _mamba_dt(p, proj[:, :dtr])
     y = ops.mamba_step(xc, dt, p["a_log"], proj[:, dtr:dtr + ds], proj[:, dtr + ds:],
@@ -191,7 +205,7 @@ def mlstm_decode_step(cfg, p: dict, x_t: torch.Tensor, state):
     xi, z = _mlstm_qkvif(cfg, p, x_t)                                  # [B,1,d_in]
     C0, n0, m0, conv_hist = state
     window = torch.cat([conv_hist, xi], dim=1)                        # [B,cw,d_in]
-    xc = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"])
+    xc = F.silu(_conv_step(window, p["conv_w"], p["conv_b"]))
     q = torch.matmul(xc, p["w_q"]).reshape(B, H, dk)
     k = torch.matmul(xc, p["w_k"]).reshape(B, H, dk)
     v = xi[:, 0].reshape(B, H, dv)

@@ -34,7 +34,7 @@ from repro_torch.core.boot import (
     ENGINE, TRACK_PROGRAM, TRACK_WEIGHTS, BootCancelled, BootPlan, Finalize, Stage,
     _plan_chunks, streamed_device_put,
 )
-from repro_torch.core.compile_cache import CompileCache
+from repro_torch.core.compile_cache import CompileCache, package_op_calls
 from repro_torch.core.deploy import deploy
 from repro_torch.core.drivers import ALL_DRIVERS, UnikernelDriver, make_drivers
 from repro_torch.core.executor import ExecutorState
@@ -132,7 +132,8 @@ def test_port_snapshot_loads_into_jax_byte_for_byte(tmp_path):
 def test_cold_start_path_end_to_end(torch_deployment):
     dep = torch_deployment
     assert dep.cache.has(dep.image.key) and dep.snapshots.has(dep.image.key)
-    assert dep.image.manifest.extra["program_format"] == "torch.export"
+    assert dep.image.manifest.extra["program_format"] == "aoti"
+    assert dep.cache.program_format(dep.image.key) == "aoti"
     assert tuple(make_drivers()) == ALL_DRIVERS
     tokens = torch.from_numpy(dep.example_tokens(seed=3))
     driver = UnikernelDriver()
@@ -154,16 +155,23 @@ def test_cold_start_path_end_to_end(torch_deployment):
 
 
 def test_exported_program_calls_the_custom_ops(torch_deployment):
+    """The serve program's graph calls the custom ops and writes the cache in
+    place; the compiled package keeps each call an opaque call: one flash
+    call per layer, one decode call per layer and step but the last, whose
+    logits no token reads (Inductor drops it as dead code)."""
     dep = torch_deployment
-    program = dep.load_program()
-    targets = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
-    assert {"repro_torch.flash_attention.default",
-            "repro_torch.decode_attention.default"} <= targets
-    n_decode = sum(str(n.target) == "repro_torch.decode_attention.default"
-                   for n in program.graph.nodes)
-    assert n_decode == dep.model.cfg.n_layers * dep.spec.decode_steps
+    params = dep.snapshots.load_host(dep.image.key)
+    tokens = torch.from_numpy(dep.example_tokens(seed=3))
+    graph = torch.export.export(dep.serve_fn, (params, tokens)).graph
+    targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
+    L, K = dep.model.cfg.n_layers, dep.spec.decode_steps
+    assert targets.count("repro_torch.flash_attention.default") == L
+    assert targets.count("repro_torch.decode_attention.default") == L * K
     # the cache writes stay in place (no functionalized whole-cache copies)
-    assert not any("scatter" in str(n.target) for n in program.graph.nodes)
+    assert not any("scatter" in t for t in targets)
+    calls = package_op_calls(dep.fetch_program_payload())
+    assert calls.count("repro_torch::flash_attention") == L
+    assert calls.count("repro_torch::decode_attention") == L * (K - 1)
 
 
 def test_port_program_on_jax_snapshot_gives_jax_tokens(tmp_path):

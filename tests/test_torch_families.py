@@ -44,7 +44,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.artifact import FunctionSpec
 from repro_torch.core.blobstore import ChunkStore, stream_restore
-from repro_torch.core.compile_cache import CompileCache
+from repro_torch.core.compile_cache import CompileCache, package_op_calls
 from repro_torch.core.deploy import deploy, make_admit_fn, make_serve_fn
 from repro_torch.core.drivers import UnikernelDriver
 from repro_torch.core.metrics import Timeline
@@ -406,21 +406,31 @@ def deploy_root(tmp_path_factory):
 
 @pytest.mark.parametrize("arch", [KIMI, QWEN_VL])
 def test_deploy_unikernel_boot_gives_jax_tokens_both_ways(arch, deploy_root):
-    """The port's deploy exports, saves, loads and verifies the serve program
-    (one flash node per layer, one decode node per layer and step) and its
-    head/tail split; booted by the ``unikernel`` driver it gives the eager
+    """The port's deploy exports, compiles, saves, loads and verifies the
+    serve program (one flash node per layer, one decode node per layer and
+    step) and its head/tail split; booted by the ``unikernel`` driver it gives the eager
     tokens. Each package's program on the other's v1 snapshot gives that
     package's executor tokens: the port's program on JAX's snapshot gives the
     JAX executor's tokens, and JAX's serve function on the port's snapshot
     the port executor's."""
     dep, jdep, tokens, out, jout = _deployed_pair(arch, deploy_root / arch)
     assert dep.split_ok and set(dep.build_s) == {
-        "init", "export", "save", "load", "verify", "split", "first_use_order", "snapshot"}
+        "init", "export", "compile", "save", "load", "verify", "split", "first_use_order",
+        "snapshot"}
     program = dep.load_program()
-    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    params = dep.snapshots.load_host(dep.image.key)
+    graph = torch.export.export(dep.serve_fn, (params, torch.from_numpy(tokens))).graph
+    targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
     L = dep.model.cfg.n_layers
     assert targets.count("repro_torch.flash_attention.default") == L
     assert targets.count("repro_torch.decode_attention.default") == L * DEPLOY_K
+    # the package calls each op as an opaque call, as the graph does; of the
+    # last step's decode calls, whose logits no token reads, Inductor drops
+    # those that nothing else needs (none for Kimi, whose steps write its
+    # ``head`` layer's cache)
+    calls = package_op_calls(dep.fetch_program_payload())
+    assert calls.count("repro_torch::flash_attention") == L
+    assert L * (DEPLOY_K - 1) <= calls.count("repro_torch::decode_attention") <= L * DEPLOY_K
     with torch.inference_mode():
         eager = dep.serve_fn(dep.snapshots.load_host(dep.image.key), torch.from_numpy(tokens))
     np.testing.assert_array_equal(out, eager.numpy())

@@ -39,7 +39,7 @@ from repro_torch import pytree
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.artifact import FunctionSpec
-from repro_torch.core.compile_cache import CompileCache
+from repro_torch.core.compile_cache import CompileCache, package_op_calls
 from repro_torch.core.deploy import deploy, make_serve_fn
 from repro_torch.core.drivers import UnikernelDriver
 from repro_torch.core.metrics import Timeline
@@ -367,8 +367,8 @@ def test_paged_decode_is_refused_for_jamba():
 # ------------------------------------------------------------- deploy and boot
 
 def test_deploy_exports_one_scan_node_per_mamba_layer_and_gives_jax_tokens(tmp_path):
-    """The port's deploy exports, saves, loads and verifies the serve program
-    of the reduced jamba on the CPU: one ``selective_scan`` node per Mamba
+    """The port's deploy exports, compiles, saves, loads and verifies the serve
+    program of the reduced jamba on the CPU: one ``selective_scan`` node per Mamba
     layer (the prefill), one ``mamba_step`` node per Mamba layer and decode
     step, one flash node per attention layer and one decode-attention node
     per attention layer and step. Booted on the snapshot the JAX package's
@@ -378,16 +378,27 @@ def test_deploy_exports_one_scan_node_per_mamba_layer_and_gives_jax_tokens(tmp_p
                         reduced=False)
     dep = deploy(spec, CompileCache(tmp_path / "tc"), SnapshotStore(tmp_path / "ts"),
                  str(tmp_path), device="cpu")
-    assert set(dep.build_s) == {"init", "export", "save", "load", "verify", "split",
-                                "first_use_order", "snapshot"}
+    assert set(dep.build_s) == {"init", "export", "compile", "save", "load", "verify",
+                                "split", "first_use_order", "snapshot"}
     program = dep.load_program()
-    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    tokens = np.random.default_rng(5).integers(0, 512, (2, 16), dtype=np.int32)
+    graph = torch.export.export(dep.serve_fn, (dep.snapshots.load_host(dep.image.key),
+                                               torch.from_numpy(tokens))).graph
+    targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
     K, n_mamba, n_attn = spec.decode_steps, 6, 2
     assert targets.count("repro_torch.selective_scan.default") == n_mamba
     assert targets.count("repro_torch.mamba_step.default") == n_mamba * K
     assert targets.count("repro_torch.flash_attention.default") == n_attn
     assert targets.count("repro_torch.decode_attention.default") == n_attn * K
     assert not any("mlstm" in t or "slstm" in t or "paged" in t for t in targets)
+    # the compiled package keeps every op an opaque call and every in-place
+    # ``mamba_step`` (it writes the state); of the last step's decode calls,
+    # whose logits no token reads, Inductor may drop those nothing else needs
+    calls = package_op_calls(dep.fetch_program_payload())
+    assert calls.count("repro_torch::selective_scan") == n_mamba
+    assert calls.count("repro_torch::mamba_step") == n_mamba * K
+    assert calls.count("repro_torch::flash_attention") == n_attn
+    assert n_attn * (K - 1) <= calls.count("repro_torch::decode_attention") <= n_attn * K
 
     tokens = np.random.default_rng(5).integers(0, 512, (2, 16), dtype=np.int32)
     ops.reset_launch_counts()

@@ -33,7 +33,7 @@ from repro_torch import pytree
 from repro_torch.configs import ArchConfig, MoEConfig, SSMConfig, get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.artifact import FunctionSpec
-from repro_torch.core.compile_cache import CompileCache
+from repro_torch.core.compile_cache import CompileCache, package_op_calls
 from repro_torch.core.deploy import deploy, make_serve_fn
 from repro_torch.core.drivers import UnikernelDriver
 from repro_torch.core.metrics import Timeline
@@ -283,8 +283,8 @@ def test_serve_greedy_tokens_equal(models, tokens):
 # ------------------------------------------------------------- deploy and boot
 
 def test_deploy_exports_one_slstm_node_per_block_and_gives_jax_tokens(tmp_path):
-    """The port's deploy exports, saves, loads and verifies the serve program
-    of a 4-block xlstm on the CPU. Per pass (the prefill, each decode step)
+    """The port's deploy exports, compiles, saves, loads and verifies the serve
+    program of a 4-block xlstm on the CPU. Per pass (the prefill, each decode step)
     the program holds one ``slstm_scan`` node per sLSTM block; the prefill
     one ``mlstm`` node per mLSTM block, each decode step one ``mlstm_step``
     node per mLSTM block; the state is written in place. Booted on the
@@ -295,17 +295,25 @@ def test_deploy_exports_one_slstm_node_per_block_and_gives_jax_tokens(tmp_path):
                         reduced=False)
     dep = deploy(spec, CompileCache(tmp_path / "tc"), SnapshotStore(tmp_path / "ts"),
                  str(tmp_path), device="cpu")
-    assert set(dep.build_s) == {"init", "export", "save", "load", "verify", "split",
-                                "first_use_order", "snapshot"}
+    assert set(dep.build_s) == {"init", "export", "compile", "save", "load", "verify",
+                                "split", "first_use_order", "snapshot"}
     program = dep.load_program()
-    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    tokens = np.random.default_rng(5).integers(0, 512, (2, 16), dtype=np.int32)
+    graph = torch.export.export(dep.serve_fn, (dep.snapshots.load_host(dep.image.key),
+                                               torch.from_numpy(tokens))).graph
+    targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
     passes = 1 + spec.decode_steps
     assert targets.count("repro_torch.slstm_scan.default") == 2 * passes
     assert targets.count("repro_torch.mlstm.default") == 2
     assert targets.count("repro_torch.mlstm_step.default") == 2 * spec.decode_steps
     assert not any("attention" in t or "scatter" in t for t in targets)
-
-    tokens = np.random.default_rng(5).integers(0, 512, (2, 16), dtype=np.int32)
+    # the compiled package keeps every op an opaque call and every in-place
+    # ``mlstm_step`` (it writes the state); of the last step's sLSTM calls,
+    # whose output no token reads, Inductor may drop those nothing else needs
+    calls = package_op_calls(dep.fetch_program_payload())
+    assert 2 * (passes - 1) <= calls.count("repro_torch::slstm_scan") <= 2 * passes
+    assert calls.count("repro_torch::mlstm") == 2
+    assert calls.count("repro_torch::mlstm_step") == 2 * spec.decode_steps
     ops.reset_launch_counts()
     tl_ = Timeline()
     ex = UnikernelDriver().start(dep, tl_)
