@@ -2,8 +2,8 @@
 """Run the PyTorch port's cold-start serve path (llama3.2-3b through the
 Gateway, under each driver of the paper's start-path taxonomy, in warm mode,
 and coalesced into bucket programs under forecast-driven pre-boot; the other
-nine architectures) and its continuous-batching decode tier on one NVIDIA
-GPU and check them.
+nine architectures), its continuous-batching decode tier and its
+single-device training path on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -180,9 +180,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    alone, every scan and flash call of a kernel-path prefill against its
    plain version, and the prefill-logit gate. Each path logs its peak device
    memory, and the free disk and host memory before its deploy.
-4. A ``kernels`` JSON line (launches per path, flash and decode also at
-   the 16-row bucket's shape and phase 3g's timed shapes), and the last line
-   ``{"ok": true, "device": {...}}``.
+3t. Training on one card, after jamba's deployment is freed: full-width
+   llama3.2-3b cut to 2 of 28 layers (595,344,384 parameters, bf16, the
+   config's own remat ``full``). A gradient gate first: one micro-batch
+   [4, 512] of ``Model.loss`` and its gradients
+   (``repro_torch.train.step.loss_and_grads``) on the kernel route and on
+   the plain route, each against the plain route in float32 on the same
+   weights: the kernel route's loss error at most 2 x the plain bf16 route's
+   plus 1e-4 x |loss|, each leaf's gradient error (relative L2 against
+   max(its norm, 1e-3 x the whole gradient's)) at most 2 x the plain route's
+   plus 1e-3, every flash call against its plain version, and 2 x L flash
+   launches (the forward and remat's recompute) and no other. Then the
+   plain flash VJP's time per call at B=4, S=512, 24/8 heads beside SDPA's
+   backward. Then the port's ``Trainer`` (``TrainerConfig(seq_len=512,
+   global_batch=8, grad_accum=2)``, ``AdamWConfig(peak_lr=1e-3, warmup=2,
+   total_steps=8)``, f32 moments): an uninterrupted 8-step run; a run to
+   step 4 with ``ckpt_every=4`` into a checkpoint directory and a fresh
+   ``Trainer`` that resumes there (its first step is 4) and runs on to 8.
+   The loss falls (step 7 below step 0), the resumed final loss is within
+   5e-3 relative of the uninterrupted run's (whether it is bit-exact is
+   logged, and if it is not, the ops PyTorch flags as nondeterministic), and
+   each step makes 2 x L x 2 flash launches; each step's seconds and
+   tokens/s, the median step, peak memory and each checkpoint's bytes and
+   seconds are logged, then the directory is deleted. Then two AdamW updates
+   with int8 moments of the trained attention and final-norm leaves on the
+   card against the same on the CPU (``q`` within 1, ``scale`` within 1e-6
+   relative); the trained weights saved into a ``SnapshotStore`` and loaded
+   back, with the eager prefill logits on them bit-identical to those on the
+   in-memory weights (the promotion of a just-trained model); and
+   xlstm-1.3b's gradient gate at full width, 1 of 6 periods (2 x 7 mLSTM
+   launches). Device memory comes back within 64 MiB of before the phase.
+4. A ``kernels`` JSON line (launches per path, phase 3t's among them; flash
+   and decode also at the 16-row bucket's shape and phase 3g's timed
+   shapes), and the last line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the repository around it (it imports
 ``src/repro_torch``); without either it exits non-zero before printing a
@@ -194,6 +224,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -2143,6 +2174,323 @@ def family_paths(torch, work, specs) -> dict:
     return launches
 
 
+# -------------------------------------------------------------------- phase 3t
+
+# full-width llama3.2-3b cut to 2 of its 28 layers (595,344,384 parameters):
+# two, so that the stacked [L, ...] leaves and per-layer remat are exercised
+TRAIN_LAYERS = 2
+TRAIN_ARCH = f"llama3.2-3b:{TRAIN_LAYERS}L"
+# micro-batches of [4, 512]: phase 2's main flash shape
+TRAIN = dict(seq_len=512, global_batch=8, grad_accum=2, steps=8, ckpt_every=4, log_every=1,
+             seed=0)
+TRAIN_OPT = dict(peak_lr=1e-3, warmup=2, total_steps=8)
+TRAIN_RESUME_RTOL = 5e-3            # tests/test_trainer.py's bound on a resumed run's loss
+# the gradient gate: the kernel route's loss error against the float32 plain
+# route at most 2 x the bf16 plain route's plus LOSS_GATE_FLOOR x |loss|; each
+# leaf's gradient error relative to max(its norm, GRAD_GATE_FLOOR x the whole
+# gradient's norm) at most 2 x the bf16 plain route's plus GRAD_GATE_FLOOR (a
+# leaf whose gradient is near zero is held to the floor, not to its own norm)
+LOSS_GATE_FLOOR = 1e-4
+GRAD_GATE_FLOOR = 1e-3
+
+
+def register_train() -> None:
+    from repro_torch.configs import get_config, register
+    register(TRAIN_ARCH)(lambda: dataclasses.replace(get_config("llama3.2-3b"),
+                                                     n_layers=TRAIN_LAYERS))
+
+
+def micro_batch(torch, cfg):
+    """The trainer's first micro-batch of step 0: tokens [4, 513] on the card."""
+    from repro_torch.data import SyntheticTokenPipeline
+    pipe = SyntheticTokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                                  global_batch=TRAIN["global_batch"], seed=TRAIN["seed"])
+    rows = TRAIN["global_batch"] // TRAIN["grad_accum"]
+    return {"tokens": torch.from_numpy(pipe.batch_dict(0)["tokens"][:rows]).cuda()}
+
+
+def grad_gate(torch, arch, want: dict) -> dict:
+    """One micro-batch's loss and gradients of ``arch`` (bf16, the config's
+    own remat) on the kernel route and on the plain route, each against the
+    plain route in float32 on the same weights; every kernel call of the
+    kernel route against its plain version. The kernel route's launches must
+    equal ``want`` (forward plus remat's recompute). Returns them."""
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import is_spec
+    from repro_torch.train.step import loss_and_grads
+    cfg = get_config(arch)
+    model = build_model(cfg, max_seq=TRAIN["seq_len"])
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = micro_batch(torch, cfg)
+    n_params = sum(p.numel() for p in pytree.leaves(params))
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with recorded_kernel_calls(ops) as calls:
+        gk, mk = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check_recorded_calls(torch, calls)
+    del calls
+    t0 = time.perf_counter()
+    with ops.impl_scope("plain"):
+        gp, mp = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"), TRAIN["seq_len"])
+        params32 = pytree.tree_map(lambda p: p.float(), params)
+        del params
+        g32, m32 = loss_and_grads(model32, params32, batch)
+    del params32
+    loss32 = m32["loss"].item()
+    err_k, err_p = abs(mk["loss"].item() - loss32), abs(mp["loss"].item() - loss32)
+    paths = [p for p, _ in pytree.flatten_with_paths(model.param_specs(), is_leaf=is_spec)]
+    norm = torch.linalg.vector_norm
+    floor = GRAD_GATE_FLOOR * math.sqrt(sum(norm(g).item() ** 2 for g in g32))
+    rows, bad = [], []
+    for path, a, b, w in zip(paths, gk, gp, g32):
+        den = max(norm(w).item(), floor)
+        rk = norm(a.float() - w).item() / den
+        rp = norm(b.float() - w).item() / den
+        rows.append((rk, rp, path))
+        if rk > 2 * rp + GRAD_GATE_FLOOR:
+            bad.append(path)
+    rows.sort(reverse=True)
+    log(f"phase 3t gradient gate {arch}: {n_params} parameters, remat {cfg.remat}, "
+        f"micro-batch {tuple(batch['tokens'].shape)} | loss kernel {mk['loss'].item():.6f} "
+        f"plain {mp['loss'].item():.6f} f32 {loss32:.6f} (errors {err_k:.3g} / {err_p:.3g}; "
+        f"aux {mk['aux'].item():.3g}, zloss {mk['zloss'].item():.4g}) | loss + grads "
+        f"{t_kernel:.2f} s kernel, {t_plain:.2f} s plain | launches {launches}")
+    log(f"phase 3t gradient gate {arch}: per-leaf gradient error vs f32 (relative L2, "
+        f"floor {GRAD_GATE_FLOOR} x |g| = {floor:.3g}), worst three kernel / plain: " +
+        "; ".join(f"{p} {rk:.3g} / {rp:.3g}" for rk, rp, p in rows[:3]) +
+        f" | largest kernel / plain ratio "
+        f"{max(rk / max(rp, 1e-30) for rk, rp, _ in rows):.3f}")
+    del gk, gp, g32
+    if err_k > 2 * err_p + LOSS_GATE_FLOOR * abs(loss32) or bad:
+        raise AssertionError(f"{arch}: the kernel route's loss or gradients are further "
+                             f"from f32 than 2 x the plain route's: loss {err_k} vs {err_p}, "
+                             f"leaves {bad}")
+    if launches != want:
+        raise AssertionError(f"{arch}: a micro-batch launched {launches}, not {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def nondeterminism(torch, model, params, batch) -> str:
+    """Whether two backward passes of one micro-batch give bit-identical
+    gradients, and the ops PyTorch flags as nondeterministic on that path
+    (``use_deterministic_algorithms(warn_only=True)``)."""
+    import warnings
+    from repro_torch.train.step import loss_and_grads
+    g1, _ = loss_and_grads(model, params, batch)
+    g2, _ = loss_and_grads(model, params, batch)
+    same = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    del g1, g2
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loss_and_grads(model, params, batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(" does not have")[0].split(". ")[0][:120]
+                      for w in caught if "determinis" in str(w.message)})
+    return f"two backward passes bit-identical {same}; flagged by torch: {flagged or 'none'}"
+
+
+def int8_on_card(torch, sub) -> None:
+    """Two AdamW updates with int8 moments of ``sub`` (bf16 leaves on the
+    card) under seeded gradients, on the card and on the CPU: every ``q``
+    within 1 and every ``scale`` within 1e-6 relative."""
+    from repro_torch import pytree
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.optim.adamw import _is_mom_leaf
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    grads = [pytree.tree_map(lambda p: 1e-3 * torch.randn(p.shape, generator=gen,
+                                                          device="cuda"), sub)
+             for _ in range(2)]
+    opt = AdamW(AdamWConfig(**TRAIN_OPT, state_dtype="int8"))
+    card, card_state = sub, opt.init(sub)
+    host = pytree.tree_map(lambda t: t.cpu(), sub)
+    host_state = opt.init(host)
+    for g in grads:
+        card, card_state, _ = opt.update(g, card_state, card)
+        host, host_state, _ = opt.update(pytree.tree_map(lambda t: t.cpu(), g), host_state,
+                                         host)
+    dq, ds = 0, 0.0
+    for key in ("m", "v"):
+        for c, h in zip(pytree.leaves(card_state[key], is_leaf=_is_mom_leaf),
+                        pytree.leaves(host_state[key], is_leaf=_is_mom_leaf)):
+            dq = max(dq, (c["q"].cpu().int() - h["q"].int()).abs().max().item())
+            ds = max(ds, ((c["scale"].cpu() - h["scale"]).abs() / h["scale"].abs()).max().item())
+    same = all(torch.equal(c.cpu(), h) for c, h in zip(pytree.leaves(card), pytree.leaves(host)))
+    n = sum(t.numel() for t in pytree.leaves(sub))
+    log(f"phase 3t int8 moments, 2 AdamW updates of {n} parameters on the card vs the "
+        f"CPU: q max difference {dq} (bound 1), scale max relative difference {ds:.3g} "
+        f"(bound 1e-6); bf16 params bit-identical {same}")
+    if dq > 1 or ds > 1e-6:
+        raise AssertionError(f"int8 moments on the card differ from the CPU's: q {dq}, "
+                             f"scale {ds}")
+
+
+def run_line(label, trainer) -> str:
+    dts = [h["dt"] for h in trainer.history]
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    steps = ", ".join(f"{h['step']}: loss {h['loss']:.5f} {h['dt']:.3f} s "
+                      f"{tokens / h['dt']:.0f} tok/s" for h in trainer.history)
+    after = sorted(dts[1:])
+    median = after[len(after) // 2] if after else float("nan")
+    return f"phase 3t {label}: {steps} | median step after the first {median:.4f} s"
+
+
+def train_path(torch, F, work) -> dict:
+    """Phase 3t: training on one card through the port's ``Trainer``: the
+    llama gradient gate, an uninterrupted run, a run stopped at a checkpoint
+    and resumed in a fresh ``Trainer``, the int8 moments on the card against
+    the CPU, the promotion of the trained weights into a snapshot, and the
+    xlstm gradient gate. Returns the kernel launches by path."""
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core.snapshot import SnapshotStore
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    work.mkdir(parents=True, exist_ok=True)
+    allocated0 = tensor_bytes(torch)
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+    zero = {k: 0 for k in ops.launch_counts()}
+    per_micro = dict(zero, flash_attention=2 * L)            # forward + remat's recompute
+    launches = {"llama_train_gate": grad_gate(torch, TRAIN_ARCH, per_micro)}
+    log(f"phase 3t before the runs: {memory_line(torch, work)}")
+
+    # ---- the plain flash VJP, the backward the card runs outside any kernel
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(4, 512, 24, 128, generator=gen, device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn(4, 512, 8, 128, generator=gen, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = ops.attention(q, k, v)
+    gout = torch.randn_like(out)
+    vjp_ms = time_ms(torch, lambda: torch.autograd.grad(out, (q, k, v), gout,
+                                                        retain_graph=True), 20)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    sdpa_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa, (qt, kt, vt),
+                                                         gout.transpose(1, 2),
+                                                         retain_graph=True), 20)
+    log(f"phase 3t flash backward at B=4, S=512, 24/8 heads, D=128, bf16: the plain VJP "
+        f"(recompute of the plain forward + autograd) {vjp_ms:.4f} ms per call; "
+        f"scaled_dot_product_attention's backward {sdpa_ms:.4f} ms")
+    del q, k, v, out, gout, qt, kt, vt, sdpa
+
+    # ---- the fault-tolerant runs
+    tcfg = TrainerConfig(**TRAIN)
+    ocfg = AdamWConfig(**TRAIN_OPT)
+    ckpt_dir = work / "ckpt"
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    full = Trainer(cfg, tcfg, ocfg, device="cuda", log=lambda s: None)
+    full.run()
+    t_full = time.perf_counter() - t0
+    log(run_line("uninterrupted run", full) + f" | wall {t_full:.1f} s")
+    t0 = time.perf_counter()
+    half = Trainer(cfg, dataclasses.replace(tcfg, steps=TRAIN["ckpt_every"]), ocfg,
+                   ckpt_dir=str(ckpt_dir), device="cuda", log=log)
+    half.run()
+    t_half = time.perf_counter() - t0
+    log(run_line(f"run to step {TRAIN['ckpt_every']}", half) + f" | wall {t_half:.1f} s")
+    t0 = time.perf_counter()
+    resumed = Trainer(cfg, tcfg, ocfg, ckpt_dir=str(ckpt_dir), device="cuda", log=log)
+    out = resumed.run()
+    t_res = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches["llama_train"] = ops.launch_counts()
+    log(run_line("resumed run", resumed) + f" | wall {t_res:.1f} s (restore included)")
+    peak = torch.cuda.max_memory_allocated()
+    saves = half.ckpt.saves + resumed.ckpt.saves
+    log("phase 3t checkpoints: " + "; ".join(
+        f"step {s['step']} {s['bytes']} B, host copy {s['copy_s']:.2f} s, write "
+        f"{s['write_s']:.2f} s" for s in saves) + f" | peak device memory {peak / 1e9:.2f} GB "
+        f"| launches {launches['llama_train']}")
+    a, b = full.history[-1]["loss"], resumed.history[-1]["loss"]
+    log(f"phase 3t resumed final loss {b!r} vs uninterrupted {a!r}: relative "
+        f"{abs(a - b) / abs(a):.3g} (bound {TRAIN_RESUME_RTOL}); bit-exact {a == b}")
+    if a != b:
+        model, params = resumed.model, out["params"]
+        log(f"phase 3t nondeterminism: "
+            f"{nondeterminism(torch, model, params, micro_batch(torch, cfg))}")
+    n_steps = TRAIN["steps"] + TRAIN["steps"]              # 8 uninterrupted, 4 + 4 resumed
+    want = dict(zero, flash_attention=n_steps * TRAIN["grad_accum"] * 2 * L)
+    problems = []
+    if resumed.history[0]["step"] != TRAIN["ckpt_every"]:
+        problems.append(f"the resumed run started at {resumed.history[0]['step']}")
+    if not full.history[TRAIN["steps"] - 1]["loss"] < full.history[0]["loss"]:
+        problems.append("the loss did not fall")
+    if abs(a - b) > TRAIN_RESUME_RTOL * abs(a):
+        problems.append(f"resumed final loss {b} vs {a}")
+    if launches["llama_train"] != want:
+        problems.append(f"launches {launches['llama_train']}, not {want}")
+    if problems:
+        raise AssertionError("phase 3t: " + "; ".join(problems))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"phase 3t checkpoint directory deleted: {memory_line(torch, work)}")
+
+    # ---- the int8 moments on the card against the same updates on the CPU
+    params = out["params"]
+    del full, half, resumed, out
+    int8_on_card(torch, {"attn": params["stack"]["layers"]["attn"], "final": params["final"]})
+
+    # ---- promotion: the trained weights as a snapshot, restored and served
+    model = build_model(cfg, max_seq=TRAIN["seq_len"])
+    tokens = micro_batch(torch, cfg)["tokens"][:, :TRAIN["seq_len"]]
+    store = SnapshotStore(work / "promoted")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    nbytes = store.save("llama-trained", params)
+    t_save = time.perf_counter() - t0
+    restored = pytree.tree_map(lambda t: t.to("cuda"), store.load_host("llama-trained"))
+    t_load = time.perf_counter() - t0 - t_save
+    with torch.inference_mode():
+        want_logits, _ = model.prefill(params, {"tokens": tokens})
+        got_logits, _ = model.prefill(restored, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches["llama_train_promote"] = ops.launch_counts()
+    same = torch.equal(want_logits, got_logits)
+    log(f"phase 3t promotion: snapshot of the trained weights {nbytes} B (save {t_save:.2f} "
+        f"s, load_host + to the card {t_load:.2f} s); prefill logits on the restored weights "
+        f"bit-identical to the in-memory weights' {same} | launches "
+        f"{launches['llama_train_promote']}")
+    del params, restored, want_logits, got_logits, model
+    shutil.rmtree(work / "promoted", ignore_errors=True)
+    if not same:
+        raise AssertionError("the promoted snapshot's prefill logits differ")
+    if launches["llama_train_promote"] != dict(zero, flash_attention=2 * L):
+        raise AssertionError(f"promotion launches {launches['llama_train_promote']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- xlstm: one micro-batch's gradient gate at full width, 1 of 6 periods
+    xcfg = get_config(XLSTM_ARCH)
+    n_mlstm = xcfg.n_layers - xcfg.n_layers // xcfg.ssm.slstm_every
+    launches["xlstm_train_gate"] = grad_gate(torch, XLSTM_ARCH, dict(zero, mlstm=2 * n_mlstm))
+
+    allocated1 = tensor_bytes(torch)
+    log(f"phase 3t: device memory allocated before {allocated0} B, after {allocated1} B "
+        f"(difference {allocated1 - allocated0} B, allowed {MEMORY_SLACK} B)")
+    if allocated1 - allocated0 > MEMORY_SLACK:
+        raise AssertionError("phase 3t left device memory allocated")
+    return launches
+
+
 # ------------------------------------------------- the background build
 
 # The deploys of phases 3g, 3c and 3d compile their serve, head and tail
@@ -2450,6 +2798,7 @@ def main() -> int:
     for arch, layers in ((LLAMA_ARCH, LLAMA_LAYERS), (COALESCE_ARCH, COALESCE_LAYERS)):
         register(arch)(lambda layers=layers: dataclasses.replace(get_config("llama3.2-3b"),
                                                                  n_layers=layers))
+    register_train()
     specs = deployed_specs()
     from repro_torch.core import compile_cache
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -2503,6 +2852,13 @@ def main() -> int:
             torch, specs[JAMBA_ARCH], work / "jamba", JAMBA_REQUESTS, jamba_launches)
         phase_done("phase 3d")
         finish_builds(builds, t_run)
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(work / "jamba", ignore_errors=True)
+
+        # ---- phase 3t: training on the card, llama at 2 of 28 layers, then xlstm
+        launches_3t = train_path(torch, F, work / "train")
+        phase_done("phase 3t")
     finally:
         stop_builds(builds)
         compile_cache.disable_inductor_disk_cache()
@@ -2525,7 +2881,8 @@ def main() -> int:
         by_path = {"serve": launches[name], "decode_tier": launches_3b[name],
                    "driver_taxonomy": launches_3e[name], "coalesced": launches_3f[name],
                    "xlstm_serve": launches_3c[name], "jamba_serve": launches_3d[name],
-                   **{path: counts[name] for path, counts in launches_3g.items()}}
+                   **{path: counts[name] for path, counts in launches_3g.items()},
+                   **{path: counts[name] for path, counts in launches_3t.items()}}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],

@@ -1,11 +1,11 @@
 """Public model API (port of ``repro.models.model``): param specs, init,
-prefill and decode for one architecture and maximum sequence length. A
-vision batch carries ``patches`` and an encoder-decoder batch ``frames``
-beside ``tokens`` (``repro_torch.models.frontends``)."""
+the training loss, prefill and decode for one architecture and maximum
+sequence length. A vision batch carries ``patches`` and an encoder-decoder
+batch ``frames`` beside ``tokens`` (``repro_torch.models.frontends``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,6 +20,8 @@ from repro_torch.models.transformer import (
     encoder_forward, make_positions, stack_cache_specs, stack_decode, stack_decode_paged,
     stack_forward, stack_page_pool_specs, stack_specs,
 )
+
+LM_Z_LOSS = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,17 +57,39 @@ class Model:
             return batch["patches"].shape[1]
         return 0
 
-    def _enc_out(self, params, batch: Dict):
+    def _enc_out(self, params, batch: Dict, train: bool = False):
         """The encoder's output over ``batch["frames"]`` (encoder-decoder
         only; a batch of tokens alone raises KeyError, as in the JAX
         package)."""
         if not self.cfg.enc_dec:
             return None
-        return encoder_forward(self.cfg, params["stack"], batch["frames"])
+        return encoder_forward(self.cfg, params["stack"], batch["frames"], train=train)
 
     def _head(self, params, x):
         x = apply_norm(self.cfg, params["final"], x)
         return logits_head(self.cfg, params["embed"], x)
+
+    # -------------------------------------------------------------------- loss
+    def loss(self, params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        """Next-token cross-entropy over ``batch["tokens"]`` [B, S+1] (inputs
+        ``[:, :-1]``, labels ``[:, 1:]``), plus the MoE aux loss and a
+        ``LM_Z_LOSS`` z-loss on the log-normaliser, in float32 ->
+        (total, {"loss", "ce", "aux", "zloss"}), as the JAX package's."""
+        tokens = batch["tokens"]
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        B, S = inputs.shape
+        positions = make_positions(self.cfg, B, S, self._n_patches(batch), device=tokens.device)
+        enc_out = self._enc_out(params, batch, train=True)
+        x = self._embed(params, batch, inputs)
+        x, _, aux = stack_forward(self.cfg, params["stack"], x, positions, "train",
+                                  enc_out=enc_out)
+        logits = self._head(params, x).float()                          # [B, S, V]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+        ce = (logz - gold).mean()
+        zloss = LM_Z_LOSS * logz.square().mean()
+        total = ce + aux + zloss
+        return total, {"loss": total, "ce": ce, "aux": aux, "zloss": zloss}
 
     # ----------------------------------------------------------------- prefill
     def prefill(self, params, batch: Dict, capacity: Optional[int] = None):
@@ -79,8 +103,8 @@ class Model:
         positions = make_positions(self.cfg, B, S, self._n_patches(batch), device=tokens.device)
         enc_out = self._enc_out(params, batch)
         x = self._embed(params, batch, tokens)
-        x, inner = stack_forward(self.cfg, params["stack"], x, positions, "prefill",
-                                 enc_out=enc_out)
+        x, inner, _ = stack_forward(self.cfg, params["stack"], x, positions, "prefill",
+                                    enc_out=enc_out)
         logits = self._head(params, x[:, -1:])[:, 0]
         return logits, {"inner": self._pad_cache(inner, B, capacity), "pos": S}
 

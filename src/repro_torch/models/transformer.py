@@ -13,13 +13,16 @@ Four stack shapes cover the ten architectures:
 The JAX package scans over the stacked ``[L, ...]`` (jamba, xLSTM:
 ``[P, ...]`` periods) layer leaves; here a Python loop walks views of the
 same leaves (``leaf[i]`` is a view, nothing is copied). The ``stack_*``
-dispatchers pick the family.
+dispatchers pick the family. In ``"train"`` mode each scanned body (a
+layer; a jamba or xLSTM period) runs under :func:`maybe_remat`, as in the
+JAX package.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import pytree
 from repro_torch.dtypes import torch_dtype
@@ -71,6 +74,41 @@ _PERIOD_BLOCKS = ("ln", "mlstm", "ln_mix", "ln_ffn", "mamba", "moe", "mlp")
 def _block(tree, i: int):
     """Block ``i`` of a period's per-block leaves (stacked, or split)."""
     return tree[i] if isinstance(tree, list) else _slice(tree, i)
+
+
+# the ops whose outputs remat "dots" keeps: 2-D matmuls, as JAX's
+# ``dots_with_no_batch_dims_saveable`` keeps dot_generals with no batch dims
+# (``x @ w`` of a [B, S, d] activation reaches autograd as ``aten.mm``)
+_DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def maybe_remat(cfg, fn):
+    """``fn`` (one scanned body: a layer, or a jamba or xLSTM period) under
+    the config's activation rematerialisation, as the JAX package's
+    ``maybe_remat``:
+
+    * ``"none"``: ``fn`` itself;
+    * ``"full"``: ``torch.utils.checkpoint`` keeps the body's inputs and
+      recomputes the rest of its forward in the backward;
+    * ``"dots"``: selective checkpointing that keeps the outputs of the 2-D
+      matmuls and recomputes everything else.
+
+    It applies only while grad is enabled: a forward with no backward (a
+    prefill, an export) runs ``fn`` with nothing added to its graph."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, not {cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(_DOTS_SAVED)
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return remat
 
 
 def _zeros_spec(shape, dtype, axes):
@@ -155,17 +193,32 @@ def uniform_forward(cfg, sp, x, positions, mode: str):
     """Returns (x, cache, aux); cache = {"k", "v"} stacked [Ls,B,S,nkv,hd]
     (and Kimi's ``head``: a list of {"k", "v"} [B,S,nkv,hd]) when mode ==
     "prefill", else None; aux is the MoE layers' summed auxiliary loss when
-    mode == "train" and the stack has MoE, else None (prefill discards it)."""
+    mode == "train" and the stack has MoE, else None (prefill discards it).
+    In train mode each stacked layer runs under :func:`maybe_remat` (Kimi's
+    head layers do not, as in the JAX package)."""
     rope = positional_tables(cfg, positions)
     train = mode == "train"
     cf = TRAIN_CF if train else EVAL_CF
     aux = x.new_zeros((), dtype=torch.float32) if train and cfg.moe else None
     first_k = _first_k(cfg)
     head, ks, vs = [], [], []
+
+    def block(p, x):
+        a, kv = attn.attention_full(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), rope)
+        x, a_l = _ffn(cfg, p, x + a, cf, train)
+        return x, kv, a_l
+
+    def train_block(p, x):
+        x, _, a_l = block(p, x)
+        return x, a_l
+
+    layer_body = maybe_remat(cfg, train_block)
     layers = list(sp.get("head", [])) + [_layer(sp, i) for i in range(cfg.n_layers - first_k)]
     for i, p in enumerate(layers):
-        a, (k, v) = attn.attention_full(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), rope)
-        x, a_l = _ffn(cfg, p, x + a, cf, train)
+        if train:
+            x, a_l = (train_block if i < first_k else layer_body)(p, x)
+        else:
+            x, (k, v), a_l = block(p, x)
         if a_l is not None:
             aux = aux + a_l
         if mode == "prefill":
@@ -313,34 +366,50 @@ def jamba_forward(cfg, sp, x, mode: str):
     """Returns (x, cache, aux); cache = {"conv", "ssm"} stacked [P, period-1,
     ...] and {"k", "v"} stacked [P, ...] when mode == "prefill", else None;
     aux is the MoE layers' summed auxiliary loss when mode == "train", else
-    None (prefill discards it)."""
+    None (prefill discards it). In train mode each period runs under
+    :func:`maybe_remat`."""
     period, P, moe_slots, mlp_slots = _jamba_layout(cfg)
     train = mode == "train"
     cf = TRAIN_CF if train else EVAL_CF
-    aux = x.new_zeros((), dtype=torch.float32) if train else None
-    convs, ssms, ks, vs = [], [], [], []
-    for p_i in range(P):
-        pp = _layer(sp, p_i)
+
+    def period_body(pp, x):
+        """One period -> (x, its summed aux loss, conv states, ssm states, (k, v))."""
+        aux_p = x.new_zeros((), dtype=torch.float32) if train else None
+        convs, ssms, kv = [], [], None
         for i in range(period):
             h = apply_norm(cfg, _block(pp["ln_mix"], i), x)
             if i == period - 1:
-                a, (k, v) = attn.attention_full(cfg, pp["attn"], h, None)
-                ks.append(k)
-                vs.append(v)
+                a, kv = attn.attention_full(cfg, pp["attn"], h, None)
             else:
                 a, (cs, hs) = ssm.mamba_forward(cfg, _block(pp["mamba"], i), h)
                 convs.append(cs)
                 ssms.append(hs)
             x, a_l = _jamba_ffn(cfg, pp, i, x + a, cf, moe_slots, mlp_slots, train)
             if a_l is not None:
-                aux = aux + a_l
-    if mode != "prefill":
+                aux_p = aux_p + a_l
+        return x, aux_p, convs, ssms, kv
+
+    if train:
+        body = maybe_remat(cfg, lambda pp, x: period_body(pp, x)[:2])
+        aux = x.new_zeros((), dtype=torch.float32)
+        for p_i in range(P):
+            x, aux_p = body(_layer(sp, p_i), x)
+            aux = aux + aux_p
         return x, None, aux
+    convs, ssms, ks, vs = [], [], [], []
+    for p_i in range(P):
+        x, _, cs, hs, (k, v) = period_body(_layer(sp, p_i), x)
+        convs += cs
+        ssms += hs
+        ks.append(k)
+        vs.append(v)
+    if mode != "prefill":
+        return x, None, None
     n_mix = period - 1
     cache = {"conv": torch.stack(convs).unflatten(0, (P, n_mix)),
              "ssm": torch.stack(ssms).unflatten(0, (P, n_mix)),
              "k": torch.stack(ks), "v": torch.stack(vs)}
-    return x, cache, aux
+    return x, cache, None
 
 
 def jamba_decode(cfg, sp, x_t, cache, pos):
@@ -393,11 +462,12 @@ def xlstm_specs(cfg, dtype):
 def xlstm_forward(cfg, sp, x, mode: str):
     """Returns (x, cache); cache = {"mlstm": {C, n, m, conv} stacked
     [P, period-1, ...], "slstm": {c, n, h, m} stacked [P, ...]} when mode ==
-    "prefill", else None."""
+    "prefill", else None. In train mode each period runs under
+    :func:`maybe_remat`."""
     period, P = _xlstm_layout(cfg)
-    periods = []
-    for p_i in range(P):
-        pp = _layer(sp, p_i)
+
+    def period_body(pp, x):
+        """One period -> (x, its mLSTM states, its sLSTM state)."""
         m_states, s_state = [], None
         for i in range(period):
             h = apply_norm(cfg, _block(pp["ln"], i), x)
@@ -407,6 +477,16 @@ def xlstm_forward(cfg, sp, x, mode: str):
                 a, m_st = ssm.mlstm_forward(cfg, _block(pp["mlstm"], i), h)
                 m_states.append(m_st)
             x = x + a
+        return x, m_states, s_state
+
+    if mode == "train":
+        body = maybe_remat(cfg, lambda pp, x: period_body(pp, x)[0])
+        for p_i in range(P):
+            x = body(_layer(sp, p_i), x)
+        return x, None
+    periods = []
+    for p_i in range(P):
+        x, m_states, s_state = period_body(_layer(sp, p_i), x)
         if mode == "prefill":
             periods.append((m_states, s_state))
     if mode != "prefill":
@@ -476,35 +556,49 @@ def encdec_specs(cfg, dtype):
     }
 
 
-def encoder_forward(cfg, sp, frames):
+def encoder_forward(cfg, sp, frames, train: bool = False):
     """frames: [B, encoder_seq, d] (the frontend stub's embeddings) ->
-    [B, encoder_seq, d], through the bidirectional encoder."""
+    [B, encoder_seq, d], through the bidirectional encoder; with ``train``
+    each layer runs under :func:`maybe_remat`."""
     x = frames.to(torch_dtype(cfg.dtype)) + sp["enc_pos"][None]
-    for i in range(cfg.n_encoder_layers):
-        p = _layer(sp, i, "enc_layers")
+
+    def layer(p, x):
         a, _ = attn.attention_full(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), None,
                                    causal=False)
         x = x + a
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+    body = maybe_remat(cfg, layer) if train else layer
+    for i in range(cfg.n_encoder_layers):
+        x = body(_layer(sp, i, "enc_layers"), x)
     return apply_norm(cfg, sp["enc_final"], x)
 
 
 def encdec_forward(cfg, sp, x, positions, mode: str, enc_out):
     """The decoder over the encoder's output ``enc_out``. Returns (x, cache);
     cache = {"k", "v"} (self-attention) and {"xk", "xv"} (the encoder's
-    projected K/V) stacked [Ld, ...] when mode == "prefill", else None."""
+    projected K/V) stacked [Ld, ...] when mode == "prefill", else None. In
+    train mode each layer runs under :func:`maybe_remat`."""
     rope = positional_tables(cfg, positions)
     names = ("k", "v", "xk", "xv")
     kvs = {key: [] for key in names}
-    for i in range(cfg.n_layers):
-        p = _layer(sp, i)
+
+    def layer(p, x):
         a, kv = attn.attention_full(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), rope)
         x = x + a
         ax, xkv = attn.attention_full(cfg, p["xattn"], apply_norm(cfg, p["lnx"], x), None,
                                       kv_from=enc_out)
         x = x + ax
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
-        for key, val in zip(names, kv + xkv):
+        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x)), kv + xkv
+
+    if mode == "train":
+        body = maybe_remat(cfg, lambda p, x: layer(p, x)[0])
+        for i in range(cfg.n_layers):
+            x = body(_layer(sp, i), x)
+        return x, None
+    for i in range(cfg.n_layers):
+        x, kv = layer(_layer(sp, i), x)
+        for key, val in zip(names, kv):
             kvs[key].append(val)
     if mode != "prefill":
         return x, None
@@ -545,16 +639,21 @@ def stack_specs(cfg, dtype):
 
 
 def stack_forward(cfg, sp, x, positions, mode: str, enc_out=None):
-    """Returns (x, cache); the MoE aux loss is dropped, as the JAX package's
-    prefill drops it."""
+    """Returns (x, cache, aux), as the JAX package's: aux is the summed MoE
+    auxiliary loss in "train" mode (a float32 0 where the stack has no MoE),
+    and None in "prefill" mode, which discards it."""
     kind = family_kind(cfg)
     if kind == "jamba":
-        return jamba_forward(cfg, sp, x, mode)[:2]
-    if kind == "xlstm":
-        return xlstm_forward(cfg, sp, x, mode)
-    if kind == "encdec":
-        return encdec_forward(cfg, sp, x, positions, mode, enc_out)
-    return uniform_forward(cfg, sp, x, positions, mode)[:2]
+        x, cache, aux = jamba_forward(cfg, sp, x, mode)
+    elif kind == "xlstm":
+        (x, cache), aux = xlstm_forward(cfg, sp, x, mode), None
+    elif kind == "encdec":
+        (x, cache), aux = encdec_forward(cfg, sp, x, positions, mode, enc_out), None
+    else:
+        x, cache, aux = uniform_forward(cfg, sp, x, positions, mode)
+    if mode == "train" and aux is None:
+        aux = x.new_zeros((), dtype=torch.float32)
+    return x, cache, aux
 
 
 def stack_decode(cfg, sp, x_t, cache, pos):

@@ -318,7 +318,7 @@ def test_frontend_inputs_match_jax(arch):
 PAGE, MAX_PAGES, SLOTS, PROMPT = 8, 3, 3, 16
 
 
-@pytest.mark.parametrize("arch", [ARCTIC, "starcoder2-3b"])
+@pytest.mark.parametrize("arch", [ARCTIC, "starcoder2-3b", "olmo-1b", "qwen2.5-32b", QWEN_VL])
 def test_decode_paged_matches_jax(arch):
     """Two requests admitted into one pool by both packages' admit programs,
     then three continuous-batching steps with an empty slot: the logits of

@@ -47,17 +47,24 @@ def test_port_sources_were_found():
         jax_mods = {p.name for p in (ROOT / "src" / "repro" / sub).glob("*.py")}
         port_mods = {p.name for p in (ROOT / "src" / "repro_torch" / sub).glob("*.py")}
         assert jax_mods <= port_mods, sorted(jax_mods - port_mods)
-    # a counterpart of every module of the JAX package's core
-    jax_core = {p.name for p in (ROOT / "src" / "repro" / "core").glob("*.py")}
-    port_core = {p.name for p in (ROOT / "src" / "repro_torch" / "core").glob("*.py")}
-    assert jax_core <= port_core, sorted(jax_core - port_core)
+    # a counterpart of every module of the JAX package's core, and of its
+    # single-device training path
+    for sub in ("core", "data", "optim", "checkpoint", "train"):
+        jax_mods = {p.name for p in (ROOT / "src" / "repro" / sub).glob("*.py")}
+        port_mods = {p.name for p in (ROOT / "src" / "repro_torch" / sub).glob("*.py")}
+        assert jax_mods and jax_mods <= port_mods, (sub, sorted(jax_mods - port_mods))
+    assert (ROOT / "src" / "repro_torch" / "launch" / "train.py").is_file()
+    assert {"adamw.py", "pipeline.py", "checkpoint.py", "step.py", "trainer.py",
+            "train.py"} <= names
 
 
 def test_importing_the_port_builds_nothing_and_loads_no_jax():
     code = ("import sys; import repro_torch.kernels.ops, repro_torch.core.drivers, "
             "repro_torch.core.decode, repro_torch.core.cluster, repro_torch.core.gateway, "
             "repro_torch.core.autoscaler, repro_torch.core.boot, repro_torch.core.executor, "
-            "repro_torch.core.batching, repro_torch.core.forecast; "
+            "repro_torch.core.batching, repro_torch.core.forecast, repro_torch.train, "
+            "repro_torch.launch.train, repro_torch.data, repro_torch.optim, "
+            "repro_torch.checkpoint; "
             "from repro_torch.core import FunctionSpec, Gateway; "
             "from repro_torch.kernels import _cuda; "
             "assert _cuda._lib is None; "
