@@ -3,7 +3,8 @@
 Gateway, under each driver of the paper's start-path taxonomy, in warm mode,
 and coalesced into bucket programs under forecast-driven pre-boot; the other
 nine architectures), its continuous-batching decode tier and its
-single-device training path on one NVIDIA GPU and check them.
+single-device training path, and its multi-device layer as four ranks
+sharing the card, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -51,7 +52,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    bidirectional over 1500 frames at 16/16 heads of 64, its cross-attention
    of 128 tokens against 1500 frames, and G = 5, 6, 7, 12 at D = 128, causal
    at 512 and at a ragged length; for decode whisper's cross decode over
-   1500 frames; four of them timed), with kernel / plain / library times (CUDA events
+   1500 frames; four of them timed; phase 3m's local shapes, timed: decode
+   at serve_tp's 2 rows of 12/4 heads over 516 positions, and the decode
+   kernel's stats entry at serve_seqkv's 2 rows of one 16,384-position
+   shard, full and holding the second shard's lengths, and with empty
+   shards), with kernel / plain / library times (CUDA events
    around back-to-back calls: ``ms``, ``plain_ms``, ``library_ms``), the
    device alone (``device_ms``, ``library_device_ms``: 200 calls captured
    in one CUDA graph and replayed), the wrapper's host time per call
@@ -210,6 +215,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    in-memory weights (the promotion of a just-trained model); and
    xlstm-1.3b's gradient gate at full width, 1 of 6 periods (2 x 7 mLSTM
    launches). Device memory comes back within 64 MiB of before the phase.
+3m. The multi-device layer (``repro_torch.dist``), after phase 3t: four
+   ``chip_smoke.py --mesh-rank R`` processes on the one card in a gloo world
+   over a ``FileStore`` (DTensor's collectives of CUDA tensors staged
+   through host memory, every byte counted), a (data=2, model=2) mesh, and
+   five cells: (a) ``serve_tp``, llama at 2 layers, B=4, a 512-token
+   prompt, 4 forced decode steps; (b) ``serve_seqkv``, a 32,768-position
+   cache cut across both model ranks and a 16,400-token prompt, 4 steps,
+   every rank launching the decode kernel's stats entry; (c) a kimi-k2 MoE
+   layer (16 of 384 experts) with the local dispatch against the global one;
+   (e) the int8 all-reduce of 50,334,720 f32 elements, 8 rounds with error
+   feedback; (d) phase 3t's training for 2 steps, then a run to step 1
+   resumed on a (data=4,) mesh. Gates, on rank 0: (a) and (b) each step's
+   logits no further from the single-device f32 plain path than 2 x the
+   single-device bf16 kernel path's; (c) the mesh's global and local
+   dispatches each within 2 x the single-device bf16 global dispatch's error
+   against f32, aux within 1e-4 of both; (d) the final loss within 1e-3 of
+   phase 3t's at the same step and the resumed run's within 1e-3 of the
+   mesh run's (one update moves it 4.4e-3), and each parameter leaf of both
+   runs after 2 steps no further from phase 3t's than 0.25 x what those
+   steps moved it; (e) each round within amax / 127. A rank that fails,
+   outlives 480 s or leaves no result fails the run; the ranks' peak device
+   memory, summed, stays under 70 GB. Each rank logs per cell its wall,
+   peak memory, launches and collective calls and bytes.
 4. A ``kernels`` JSON line (launches per path, phase 3t's among them; flash
    and decode also at the 16-row bucket's shape and phase 3g's timed
    shapes), and the last line ``{"ok": true, "device": {...}}``.
@@ -392,7 +420,8 @@ def llama_launches(cfg, spec) -> dict:
     """Per request of the eager llama program: one flash and K decode
     launches per layer."""
     return {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * spec.decode_steps,
-            "paged_decode_attention": 0, "mlstm": 0, "selective_scan": 0}
+            "decode_attention_stats": 0, "paged_decode_attention": 0, "mlstm": 0,
+            "selective_scan": 0}
 
 
 def execution_line(torch, program, serve_fn, params, tokens, reps: int = 3,
@@ -541,6 +570,53 @@ def check_decode(torch, F, da, ref, gen, case, timed: bool):
             lambda: ref.decode_attention(q, kc, vc, length), 20,
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                    enable_gqa=True)))
+    return row
+
+
+def check_decode_stats(torch, da, ref, gen, case, timed: bool):
+    """The decode kernel's stats entry against ``ref.decode_attention(...,
+    return_stats=True)``: m (natural-log units) and l of the live rows within
+    the scaled tolerance, acc / l within the decode tolerance, and every row
+    of length 0 exactly (NEG_INF, 0, 0)."""
+    B, S, Hq, Hkv, D, lengths, dtype = case
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(dt)
+    kc = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dt)
+    vc = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dt)
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    for b, n in enumerate(lengths):            # cache slots past length hold NaN
+        kc[b, n:] = float("nan")
+        vc[b, n:] = float("nan")
+    m, l, acc = da.decode_attention_stats(q, kc, vc, length)
+    again = da.decode_attention_stats(q, kc, vc, length)
+    em, el, ea = ref.decode_attention(q, kc, vc, length, return_stats=True)
+    torch.cuda.synchronize()
+    live = torch.tensor([n > 0 for n in lengths], device="cuda")
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    want = ea / torch.where(el == 0, 1.0, el)[..., None]
+    err = (out - want).abs().max().item()
+    m_err = scaled_err(m[live], em[live]) if bool(live.any()) else 0.0
+    l_err = scaled_err(l[live] / el[live].clamp_min(1e-30), torch.ones_like(el[live])) \
+        if bool(live.any()) else 0.0
+    empty_exact = all(bool((m[b] == ref.NEG_INF).all() and (l[b] == 0).all() and
+                           (acc[b] == 0).all()) for b, n in enumerate(lengths) if n == 0)
+    rerun_bitwise = all(bool(torch.equal(a, b)) for a, b in zip((m, l, acc), again))
+    ok = all(bool(torch.isfinite(t).all()) for t in (m, l, acc)) and err <= TOL[dtype] and \
+        m_err <= SCALED_TOL["float32"] and l_err <= SCALED_TOL["float32"] and \
+        empty_exact and rerun_bitwise
+    row = {"case": [B, S, Hq, Hkv, D, list(lengths), dtype], "max_abs_err": err,
+           "scaled_err_m": m_err, "rel_err_l": l_err, "empty_rows_exact": empty_exact,
+           "rerun_bitwise": rerun_bitwise, "ok": ok}
+    if timed:
+        n_live = sum(min(n, S) for n in lengths)
+        nbytes = (q.numel() + 2 * n_live * Hkv * D) * q.element_size() + \
+            4 * (2 * B * Hq + B * Hq * D) + 4 * B
+        rate = BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * Hq * D * n_live, rate)
+        # no single PyTorch call returns the unnormalised stats
+        row.update(timings(
+            torch, lambda: da.decode_attention_stats(q, kc, vc, length), 200,
+            lambda: ref.decode_attention(q, kc, vc, length, return_stats=True), 20))
     return row
 
 
@@ -814,6 +890,7 @@ def decode_tier(torch, gw, dep) -> dict:
     if s["boots"] != 1 or s["cooldowns"] != 1:
         raise AssertionError(f"boots {s['boots']} cooldowns {s['cooldowns']}, expected 1 and 1")
     want = {"flash_attention": L * sched.admits, "decode_attention": 0,
+            "decode_attention_stats": 0,
             "paged_decode_attention": L * sched.steps, "mlstm": 0, "selective_scan": 0}
     if launches != want or sched.admits != N_DECODE_REQUESTS:
         raise AssertionError(f"decode tier launches {launches} (admits {sched.admits}, "
@@ -1999,7 +2076,7 @@ def jamba_launches(cfg, spec) -> dict:
     prefill)."""
     P = cfg.n_layers // cfg.ssm.attn_every
     return {"flash_attention": P, "decode_attention": P * spec.decode_steps,
-            "paged_decode_attention": 0, "mlstm": 0,
+            "decode_attention_stats": 0, "paged_decode_attention": 0, "mlstm": 0,
             "selective_scan": P * (cfg.ssm.attn_every - 1)}
 
 
@@ -2044,8 +2121,8 @@ def family_launches(cfg, steps: int) -> dict:
     attention and step."""
     per_token = 2 * cfg.n_layers if cfg.enc_dec else cfg.n_layers
     return {"flash_attention": cfg.n_encoder_layers + per_token,
-            "decode_attention": per_token * steps, "paged_decode_attention": 0,
-            "mlstm": 0, "selective_scan": 0}
+            "decode_attention": per_token * steps, "decode_attention_stats": 0,
+            "paged_decode_attention": 0, "mlstm": 0, "selective_scan": 0}
 
 
 def config_line(cfg) -> str:
@@ -2192,12 +2269,29 @@ TRAIN_RESUME_RTOL = 5e-3            # tests/test_trainer.py's bound on a resumed
 # leaf whose gradient is near zero is held to the floor, not to its own norm)
 LOSS_GATE_FLOOR = 1e-4
 GRAD_GATE_FLOOR = 1e-3
+REFERENCE = {}                      # the uninterrupted run's losses and params, for phase 3m
 
 
 def register_train() -> None:
     from repro_torch.configs import get_config, register
     register(TRAIN_ARCH)(lambda: dataclasses.replace(get_config("llama3.2-3b"),
                                                      n_layers=TRAIN_LAYERS))
+
+
+def keep_params_after(trainer, steps: int) -> None:
+    """Make ``trainer`` keep a device copy of its params after ``steps``
+    steps in ``REFERENCE["params"]`` (a flat list; the update writes in
+    place, so the copy is taken as the step returns)."""
+    from repro_torch import pytree
+    inner, calls = trainer._step, [0]
+
+    def step(*args):
+        out = inner(*args)
+        calls[0] += 1
+        if calls[0] == steps:
+            REFERENCE["params"] = [t.detach().clone() for t in pytree.leaves(out[0])]
+        return out
+    trainer._step = step
 
 
 def micro_batch(torch, cfg):
@@ -2399,8 +2493,10 @@ def train_path(torch, F, work) -> dict:
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     full = Trainer(cfg, tcfg, ocfg, device="cuda", log=lambda s: None)
+    keep_params_after(full, MESH_TRAIN["steps"])
     full.run()
     t_full = time.perf_counter() - t0
+    REFERENCE["params"] = [t.cpu() for t in REFERENCE["params"]]
     log(run_line("uninterrupted run", full) + f" | wall {t_full:.1f} s")
     t0 = time.perf_counter()
     half = Trainer(cfg, dataclasses.replace(tcfg, steps=TRAIN["ckpt_every"]), ocfg,
@@ -2422,6 +2518,7 @@ def train_path(torch, F, work) -> dict:
         f"{s['write_s']:.2f} s" for s in saves) + f" | peak device memory {peak / 1e9:.2f} GB "
         f"| launches {launches['llama_train']}")
     a, b = full.history[-1]["loss"], resumed.history[-1]["loss"]
+    REFERENCE["train_losses"] = [h["loss"] for h in full.history]
     log(f"phase 3t resumed final loss {b!r} vs uninterrupted {a!r}: relative "
         f"{abs(a - b) / abs(a):.3g} (bound {TRAIN_RESUME_RTOL}); bit-exact {a == b}")
     if a != b:
@@ -2488,6 +2585,528 @@ def train_path(torch, F, work) -> dict:
         f"(difference {allocated1 - allocated0} B, allowed {MEMORY_SLACK} B)")
     if allocated1 - allocated0 > MEMORY_SLACK:
         raise AssertionError("phase 3t left device memory allocated")
+    return launches
+
+
+# -------------------------------------------------------------------- phase 3m
+
+MESH_RANKS = 4                      # rank processes, all on the one card
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
+MESH_BUDGET_S = 150.0               # the phase's share of the run's time limit
+MESH_TIMEOUT_S = 480                # a rank that runs longer fails the run
+MESH_COLLECTIVE_TIMEOUT_S = 300     # a collective that waits longer raises in its rank
+MESH_MEMORY_LIMIT = 70e9            # the ranks' peak device memory, summed
+# (a) serve_tp: llama3.2-3b at 2 of 28 layers (phase 3t's cut), B=4, a
+# 512-token prompt, 4 decode steps (cut from 16: a step of the mesh takes
+# about 1.2 s, its collectives staged through host memory); (b) serve_seqkv: decode_32k's cache of
+# 32,768 positions and a 16,400-token prompt, so that both model shards hold
+# keys (the boundary is at 16,384), 4 decode steps
+MESH_TP = dict(batch=4, prompt=512, steps=4)
+MESH_SEQKV = dict(batch=4, capacity=32768, prompt=16400, steps=4)
+# (c) one kimi-k2 MoE layer at published widths, 16 of its 384 experts
+# (phase 3g's cut), B=4, S=512; capacity_factor 64 gives every expert room
+# for every token (C = T), so the capacity never binds
+MESH_MOE = dict(experts=16, batch=4, seq=512, capacity_factor=64.0)
+# (e) int8 all-reduce of a 50,334,720-element f32 tensor, 8 rounds
+MESH_ALLREDUCE = dict(numel=50_334_720, rounds=8)
+# (d) phase 3t's configuration for 2 steps, then a run to step 1 resumed on
+# a (data=4,) mesh to step 2 (cut from 8, 4 and 8: a step of the mesh takes
+# 11-20 s, its gradients reduced through host memory)
+MESH_TRAIN = dict(steps=2, resume_at=1)
+# (d)'s gates. The loss at step 1, after one update at lr 5e-4, against the
+# single-device run's (and the resumed run's against the uninterrupted
+# one's): at most 1e-3 relative, where one update moves it 4.4e-3 (12.305607
+# -> 12.251320 on the card), so a mesh step that leaves the parameters as
+# they were fails. Each parameter leaf after both steps, gathered on rank 0:
+# ||mesh - single|| at most MESH_PARAM_BOUND x ||single - init||, what the
+# single-device run's two steps moved it (a lost update reads 1).
+MESH_TRAIN_RTOL = 1e-3
+MESH_PARAM_BOUND = 0.25
+
+
+def mesh_logits(torch, model, params, toks, prompt: int, capacity: int, steps: int):
+    """Last-position prefill logits and each forced decode step's logits
+    (every step feeds the next token of ``toks``), gathered whole, f32,
+    with the seconds of the prefill and of each step."""
+    def whole(x):
+        return (x.full_tensor() if hasattr(x, "full_tensor") else x).float()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": toks[:, :prompt]}, capacity=capacity)
+    outs = [whole(logits)]
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    for t in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = model.decode(params, cache, toks[:, prompt + t:prompt + t + 1])
+        outs.append(whole(logits))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return outs, times
+
+
+def mesh_gate(torch, got, kernel, f32, label: str) -> dict:
+    """The f32 gate: at every step the mesh path's logits no further from
+    the single-device f32 plain path than 2 x the single-device bf16 kernel
+    path's (rel_l2); greedy agreement with the kernel path logged."""
+    err_m = [rel_l2(a, c) for a, c in zip(got, f32)]
+    err_k = [rel_l2(b, c) for b, c in zip(kernel, f32)]
+    agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean()) for a, b in zip(got, kernel)]
+    ok = all(bool(torch.isfinite(a).all()) for a in got) and \
+        all(m <= 2.0 * k for m, k in zip(err_m, err_k))
+    return {"label": label, "ok": ok, "err_mesh": err_m, "err_kernel": err_k,
+            "greedy_agreement": agree}
+
+
+def mesh_serve_cell(torch, ctx, preset: str, batch: int, prompt: int, capacity: int,
+                    steps: int) -> dict:
+    """Cells (a) and (b): the llama's prefill and forced decode steps under
+    ``preset`` on the (data, model) mesh, against the single-device paths on
+    rank 0."""
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import distribute_tree, make_rules, param_shardings, use_rules
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    mesh, rank = ctx["mesh"], ctx["rank"]
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, max_seq=capacity)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rules = make_rules(preset, mesh)
+    t0 = time.perf_counter()
+    # every rank drew the same weights from the seed: each keeps its own slice
+    dp = distribute_tree(params, param_shardings(model.param_specs(), rules, mesh), mesh,
+                         src_rank=None)
+    t_dist = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt + steps), generator=gen,
+                         device="cuda")
+    def run():
+        with torch.no_grad(), use_rules(rules, mesh):
+            return mesh_logits(torch, model, dp, toks, prompt, capacity, steps)
+    out = ctx["measure"](run)
+    got, times = out.pop("result")
+    del dp
+    out.update(distribute_s=t_dist, prefill_s=times[0], step_s=times[1:])
+    if rank == 0:                       # the single-device references, not counted
+        with torch.no_grad():
+            kernel, _ = mesh_logits(torch, model, params, toks, prompt, capacity, steps)
+            m32 = build_model(dataclasses.replace(cfg, dtype="float32"), max_seq=capacity)
+            p32 = pytree.tree_map(lambda t: t.float(), params)
+            with ops.impl_scope("plain"):
+                f32, _ = mesh_logits(torch, m32, p32, toks, prompt, capacity, steps)
+        out["gate"] = mesh_gate(torch, got, kernel, f32, preset)
+        del p32, kernel, f32
+    return out
+
+
+def mesh_moe_cell(torch, ctx) -> dict:
+    """Cell (c): one kimi-k2 MoE layer under ``train``, the local dispatch
+    against the global one on the same tokens and weights."""
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import distribute_tree, make_rules, param_shardings, use_rules
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import init_tree
+    mesh, rank = ctx["mesh"], ctx["rank"]
+    base = get_config("kimi-k2-1t-a32b")
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe,
+                                                            n_experts=MESH_MOE["experts"]))
+    specs = moe_mod.moe_specs(cfg, torch.bfloat16)
+    p = init_tree(specs, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = (torch.randn(MESH_MOE["batch"], MESH_MOE["seq"], cfg.d_model, generator=gen,
+                     device="cuda")).to(torch.bfloat16)
+    cf = MESH_MOE["capacity_factor"]
+    ys, out = {}, {}
+    for disp in ("global", "local"):
+        rules = make_rules("train", mesh, moe_dispatch=disp)
+        dp = distribute_tree(p, param_shardings(specs, rules, mesh), mesh, src_rank=None)
+
+        def run():
+            with torch.no_grad(), use_rules(rules, mesh):
+                y, aux = moe_mod.moe_forward(cfg, dp, x, capacity_factor=cf)
+                y = y.full_tensor().float()
+                aux = aux.full_tensor() if hasattr(aux, "full_tensor") else aux
+                return y, float(aux)
+        r = ctx["measure"](run)
+        ys[disp] = r.pop("result")
+        out[disp] = r
+        del dp
+    if rank == 0:                       # the single-device references, not counted
+        p32 = pytree.tree_map(lambda t: t.float(), p)
+        with torch.no_grad():
+            y_sd, aux_sd = moe_mod.moe_forward(cfg, p, x, capacity_factor=cf)
+            y32, _ = moe_mod._moe_forward_global(dataclasses.replace(cfg, dtype="float32"),
+                                                 p32, x.float(), cf)
+        err_sd = rel_l2(y_sd.float(), y32.float())
+        err_g, err_l = rel_l2(ys["global"][0], y32.float()), rel_l2(ys["local"][0], y32.float())
+        aux_d = abs(ys["global"][1] - ys["local"][1])
+        aux_sd_d = abs(ys["global"][1] - float(aux_sd))
+        out["gate"] = {"label": "moe",
+                       "ok": err_g <= 2.0 * err_sd and err_l <= 2.0 * err_sd and
+                       aux_d <= 1e-4 and aux_sd_d <= 1e-4,
+                       "err_single_device": err_sd, "err_global": err_g, "err_local": err_l,
+                       "aux_diff": aux_d, "aux_diff_single_device": aux_sd_d,
+                       "aux": ys["global"][1]}
+        del p32, y_sd, y32
+    return out
+
+
+def param_errors(torch, params, want, init) -> list:
+    """Per leaf (``want``, ``init``: flat lists, or None off rank 0): (path,
+    ||p - want||, ||want - init||, ||want||), ``params`` gathered whole on
+    every rank (a collective), compared on rank 0 only."""
+    from repro_torch import pytree
+    from repro_torch.dist.sharding import is_dtensor
+    rows = []
+    for i, (path, t) in enumerate(pytree.flatten_with_paths(params)):
+        whole = (t.full_tensor() if is_dtensor(t) else t).float()
+        if want is not None:
+            w = want[i].float()
+            rows.append((path, float((whole - w).norm()), float((w - init[i].float()).norm()),
+                         float(w.norm())))
+        del whole
+    return rows
+
+
+def param_gate(rows) -> dict:
+    """``rows`` of ``param_errors`` against ``MESH_PARAM_BOUND``, with the
+    worst leaf, the largest relative error and the smallest no-update
+    reading (relative L2 of the initial params) logged."""
+    ratio = [(num / den if den else (0.0 if num == 0 else math.inf), path)
+             for path, num, den, _ in rows]
+    moved = [den / norm for _, _, den, norm in rows if den]
+    return {"ok": all(num <= MESH_PARAM_BOUND * den for _, num, den, _ in rows),
+            "worst_share_of_update": max(ratio), "bound": MESH_PARAM_BOUND,
+            "max_rel_l2": max(num / norm for _, num, _, norm in rows if norm),
+            "min_rel_l2_no_update": min(moved) if moved else None,
+            "leaves_unmoved": sum(1 for _, _, den, _ in rows if not den)}
+
+
+def mesh_train_cell(torch, ctx) -> dict:
+    """Cell (d): phase 3t's run on the (data, model) mesh, then a run to
+    step 1 and its resumption on a (data=4,) mesh over the same ranks; the
+    losses and, leaf by leaf, the params after both steps against the
+    single-device run's."""
+    import torch.distributed as dist
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import make_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    mesh, rank, work = ctx["mesh"], ctx["rank"], ctx["work"]
+    cfg = get_config(TRAIN_ARCH)
+    tcfg, ocfg = TrainerConfig(**TRAIN), AdamWConfig(**TRAIN_OPT)
+    steps, resume_at = MESH_TRAIN["steps"], MESH_TRAIN["resume_at"]
+    ckpt = str(work / "ckpt")
+    runs = {}
+
+    def trainer(m, steps, ckpt_dir=None):
+        return Trainer(cfg, dataclasses.replace(tcfg, steps=steps), ocfg, ckpt_dir=ckpt_dir,
+                       mesh=m, rules=make_rules("train", m), log=lambda s: None,
+                       device="cuda")
+
+    def run(tr):
+        out = tr.run()
+        return [(h["step"], h["loss"], h["dt"]) for h in tr.history], out["params"]
+
+    want = init = None
+    if rank == 0:                       # the single-device run's params after `steps` steps
+        want = torch.load(work / "ref_params.pt", map_location="cuda")
+        init = pytree.leaves(build_model(cfg, max_seq=tcfg.seq_len).init(
+            torch.Generator(device="cuda").manual_seed(tcfg.seed)))
+    errs = {}
+    for name, m, n, ckpt_dir in (("full", mesh, steps, None), ("half", mesh, resume_at, ckpt),
+                                 ("resumed_data4", None, steps, ckpt)):
+        if m is None:
+            m = make_mesh((MESH_RANKS,), ("data",))
+        tr = trainer(m, n, ckpt_dir)
+        runs[name] = ctx["measure"](lambda: run(tr))
+        runs[name]["result"], params = runs[name]["result"]
+        if n == steps:
+            errs[name] = param_errors(torch, params, want, init)
+        if rank == 0 and ckpt_dir:
+            runs.setdefault("saves", []).extend(tr.ckpt.saves)
+        del tr, params
+    del want, init
+    dist.barrier()
+    if rank == 0:
+        a = runs["full"]["result"][-1][1]
+        b = runs["resumed_data4"]["result"][-1][1]
+        ref = ctx["train_ref_losses"][steps - 1]    # the single-device run at the same step
+        gates = {name: param_gate(rows) for name, rows in errs.items()}
+        runs["gate"] = {"label": "train", "full_vs_single_device": abs(a - ref) / abs(ref),
+                        "resumed_vs_full": abs(a - b) / abs(a), "bound": MESH_TRAIN_RTOL,
+                        "bit_exact_resume": a == b, "bit_exact_single_device": a == ref,
+                        "single_device": ref, "params": gates,
+                        "ok": abs(a - ref) <= MESH_TRAIN_RTOL * abs(ref) and
+                        abs(a - b) <= MESH_TRAIN_RTOL * abs(a) and
+                        runs["resumed_data4"]["result"][0][0] == resume_at and
+                        all(g["ok"] for g in gates.values())}
+    return runs
+
+
+def mesh_allreduce_cell(torch, ctx) -> dict:
+    """Cell (e): the int8 all-reduce (mean) over the 4 ranks with error
+    feedback, the same tensor each round: each round's error against the
+    exact mean at most 1/127 of the largest amax; the time-averaged
+    result's error logged."""
+    import torch.distributed as dist
+    from repro_torch.dist.collectives import (ErrorFeedback, compressed_allreduce,
+                                              dequantize_int8, ef_compress)
+    rank = ctx["rank"]
+    gen = torch.Generator(device="cuda").manual_seed(10 + rank)
+    x = torch.randn(MESH_ALLREDUCE["numel"], generator=gen, device="cuda")
+    exact = x.clone()
+    dist.all_reduce(exact)
+    exact /= dist.get_world_size()
+
+    def rounds():
+        ef, errs, amaxes, total = ErrorFeedback.init(x), [], [], torch.zeros_like(x)
+        for _ in range(MESH_ALLREDUCE["rounds"]):
+            q, scale, ef = ef_compress(x, ef)
+            sent = dequantize_int8(q, scale)
+            amax = sent.abs().amax()
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+            got = compressed_allreduce(sent)
+            total += got
+            errs.append(float((got - exact).abs().max()))
+            amaxes.append(float(amax))
+        avg_err = float((total / MESH_ALLREDUCE["rounds"] - exact).abs().max())
+        return errs, amaxes, avg_err
+    out = ctx["measure"](rounds)
+    errs, amaxes, avg_err = out.pop("result")
+    out.update(errs=errs, amax=max(amaxes), time_avg_err=avg_err,
+               ok=all(e <= a / 127.0 for e, a in zip(errs, amaxes)))
+    return out
+
+
+def name_failing_ops() -> None:
+    """Make an op that DTensor's sharding propagation refuses name itself
+    and its arguments' placements in the error (the card's torch differs
+    from the CPU tests')."""
+    from torch.distributed.tensor import _sharding_prop
+    prop = _sharding_prop.ShardingPropagator
+    inner = prop.propagate_op_sharding_non_cached
+
+    def propagate(self, op_schema, *args, **kwargs):
+        try:
+            return inner(self, op_schema, *args, **kwargs)
+        except Exception as e:
+            e.add_note(f"DTensor refused {op_schema}")
+            raise
+
+    prop.propagate_op_sharding_non_cached = propagate
+
+
+def mesh_rank_main(rank: int, work: str) -> int:
+    """``chip_smoke.py --mesh-rank R WORK``: one rank of phase 3m; its
+    results and launch counts go to ``WORK/rank_R.json``."""
+    import traceback
+    work = Path(work)
+    result = {"rank": rank, "ok": False, "cells": {}}
+    try:
+        import torch
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.dist.collectives import WIRE
+        from repro_torch.kernels import _cuda, ops
+        from repro_torch.launch.mesh import init_world, make_mesh
+        register_train()
+        _cuda.library()
+        name_failing_ops()
+        t0 = time.perf_counter()
+        lines = []
+        result["backend"] = init_world(rank, MESH_RANKS, store_path=str(work / "store"),
+                                       device="cuda", timeout_s=MESH_COLLECTIVE_TIMEOUT_S,
+                                       log=lines.append)
+        result["log"] = lines
+        mesh = make_mesh(MESH_SHAPE, MESH_AXES)
+        result["init_s"] = time.perf_counter() - t0
+        ref = json.loads((work / "ref.json").read_text())
+
+        def measure(fn):
+            import torch.distributed as dist
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()            # what this rank no longer holds, to the others
+            dist.barrier()
+            ops.reset_launch_counts()
+            WIRE.reset()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return {"result": r, "wall_s": time.perf_counter() - t,
+                    "launches": ops.launch_counts(), "wire": WIRE.summary(),
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+
+        ctx = {"rank": rank, "mesh": mesh, "work": work, "measure": measure,
+               "train_ref_losses": ref["train_losses"]}
+        cells = result["cells"]
+        wanted = ref.get("cells") or MESH_CELLS
+        out_path = work / f"rank_{rank}.json"
+
+        class Cells(dict):                  # each finished cell is on disk at once
+            def __setitem__(self, key, value):
+                super().__setitem__(key, value)
+                out_path.write_text(json.dumps(result, default=str))
+        cells = result["cells"] = Cells()
+        if "serve_tp" in wanted:
+            cells["serve_tp"] = mesh_serve_cell(torch, ctx, "serve_tp", MESH_TP["batch"],
+                                                MESH_TP["prompt"],
+                                                MESH_TP["prompt"] + MESH_TP["steps"],
+                                                MESH_TP["steps"])
+        if "serve_seqkv" in wanted:
+            cells["serve_seqkv"] = mesh_serve_cell(
+                torch, ctx, "serve_seqkv", MESH_SEQKV["batch"], MESH_SEQKV["prompt"],
+                MESH_SEQKV["capacity"], MESH_SEQKV["steps"])
+        if "moe" in wanted:
+            cells["moe"] = mesh_moe_cell(torch, ctx)
+        if "allreduce" in wanted:
+            cells["allreduce"] = mesh_allreduce_cell(torch, ctx)
+        if "train" in wanted:
+            cells["train"] = mesh_train_cell(torch, ctx)
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()
+        result["ok"] = True
+    except BaseException:
+        result["error"] = traceback.format_exc()
+        print(result["error"], file=sys.stderr, flush=True)
+    (work / f"rank_{rank}.json").write_text(json.dumps(result, default=str))
+    return 0 if result["ok"] else 1
+
+
+MESH_CELLS = ("serve_tp", "serve_seqkv", "moe", "allreduce", "train")
+
+
+def mesh_path(torch, work: Path, train_ref_losses, train_ref_params=None,
+              cells=MESH_CELLS) -> dict:
+    """Phase 3m: four rank processes of this script on the one card, a
+    gloo world over a FileStore in ``work`` (DTensor's collectives staged
+    through host memory), a (data=2, model=2) mesh, and cells (a)-(e).
+    Any rank that fails, outlives ``MESH_TIMEOUT_S`` or leaves no result
+    fails the run. Returns the kernel launches per path, summed over ranks."""
+    work.mkdir(parents=True, exist_ok=True)
+    log(f"phase 3m: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB of device "
+        f"memory ({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved) as the ranks start")
+    (work / "ref.json").write_text(json.dumps({"train_losses": list(train_ref_losses),
+                                               "cells": list(cells)}))
+    if train_ref_params is not None:
+        torch.save(train_ref_params, work / "ref_params.pt")
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(MESH_RANKS):
+        out = open(work / f"rank_{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                        "--mesh-rank", str(r), str(work)], stdout=out,
+                                       stderr=subprocess.STDOUT, start_new_session=True), out))
+    failed = []
+    try:
+        for r, (proc, _) in enumerate(procs):
+            left = max(1.0, MESH_TIMEOUT_S - (time.perf_counter() - t0))
+            try:
+                if proc.wait(timeout=left) != 0:
+                    failed.append(f"rank {r} exited {proc.returncode}")
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} ran past {MESH_TIMEOUT_S} s")
+    finally:
+        import os
+        import signal
+        for proc, out in procs:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            out.close()
+    wall = time.perf_counter() - t0
+    results = []
+    for r in range(MESH_RANKS):
+        path = work / f"rank_{r}.json"
+        if not path.exists():
+            failed.append(f"rank {r} left no result")
+            continue
+        res = json.loads(path.read_text())
+        results.append(res)
+        if not res["ok"]:
+            walls = {k: round(v.get("wall_s", 0.0), 2) for k, v in res["cells"].items()}
+            failed.append(f"rank {r} (cells done: {walls}): {res.get('error', '')[-6000:]}")
+    if failed:
+        tails = "\n".join(f"--- rank {r} log tail:\n" +
+                          (work / f"rank_{r}.log").read_text()[-2500:] for r in range(MESH_RANKS))
+        raise AssertionError("phase 3m: " + "\n".join(failed) + "\n" + tails)
+    for line in results[0].get("log", []):
+        log(line)
+    log(f"phase 3m: {MESH_RANKS} ranks on one card, mesh {dict(zip(MESH_AXES, MESH_SHAPE))}, "
+        f"backend {results[0]['backend']} | wall {wall:.1f} s (budget {MESH_BUDGET_S:.0f} s) | "
+        "rank start-up " + ", ".join(f"{r['init_s']:.1f}" for r in results) + " s")
+
+    def parts(cell_result):
+        """The measured runs of one rank's cell: (name, measurement)."""
+        if "wall_s" in cell_result:
+            return [("", cell_result)]
+        return [(k, v) for k, v in cell_result.items() if isinstance(v, dict) and "wall_s" in v]
+
+    launches, problems, peaks = {}, [], [0] * MESH_RANKS
+    for cell in cells:
+        first = results[0]["cells"][cell]
+        total = {}
+        for res in results:
+            c = res["cells"][cell]
+            for name, m in parts(c):
+                peaks[res["rank"]] = max(peaks[res["rank"]], m["peak_bytes"])
+                for k, v in m["launches"].items():
+                    total[k] = total.get(k, 0) + v
+                extra = ""
+                if "step_s" in c:
+                    extra = (f" | distribute {c['distribute_s']:.2f} s, prefill "
+                             f"{c['prefill_s']:.3f} s, decode steps "
+                             f"{[round(t, 4) for t in c['step_s']]}")
+                log(f"phase 3m {cell}{' ' + name if name else ''} rank {res['rank']}: wall "
+                    f"{m['wall_s']:.2f} s | peak device memory {m['peak_bytes'] / 1e9:.2f} GB | "
+                    f"launches { {k: v for k, v in m['launches'].items() if v} } | "
+                    f"collectives {m['wire']}{extra}")
+        launches["mesh_" + cell] = total
+        if cell == "train":
+            for name in ("full", "half", "resumed_data4"):
+                log(f"phase 3m train {name}: " + ", ".join(
+                    f"step {s} loss {loss:.6f} ({dt:.3f} s)" for s, loss, dt in
+                    first[name]["result"]))
+            log("phase 3m train checkpoints: " + "; ".join(
+                f"step {s['step']} {s['bytes']} B, host copy (gather included) "
+                f"{s['copy_s']:.2f} s, write {s['write_s']:.2f} s" for s in first["saves"]))
+        if cell == "allreduce":
+            log(f"phase 3m allreduce: {MESH_ALLREDUCE['numel']} f32 elements, "
+                f"{MESH_ALLREDUCE['rounds']} rounds with error feedback | per-round max error "
+                f"{[f'{e:.3g}' for e in first['errs']]} (bound amax/127 = "
+                f"{first['amax'] / 127:.4g}) | time-averaged result's error "
+                f"{first['time_avg_err']:.3g}")
+            if not all(res["cells"][cell]["ok"] for res in results):
+                problems.append("allreduce error past amax/127")
+        if "gate" in first:
+            log(f"phase 3m {cell} gate: " + json.dumps(first["gate"]))
+            if not first["gate"]["ok"]:
+                problems.append(f"{cell} gate failed")
+        if cell == "serve_seqkv":
+            stats = [res["cells"][cell]["launches"]["decode_attention_stats"]
+                     for res in results]
+            if min(stats) == 0:
+                problems.append(f"serve_seqkv: a rank launched no stats kernel {stats}")
+    peak = sum(peaks)
+    log(f"phase 3m: peak device memory per rank {[round(p / 1e9, 2) for p in peaks]} GB, "
+        f"summed {peak / 1e9:.2f} GB (limit {MESH_MEMORY_LIMIT / 1e9:.0f} GB) | the gloo "
+        "collectives went through host memory: their times say nothing of NVLink")
+    if peak > MESH_MEMORY_LIMIT:
+        problems.append(f"peak device memory {peak} B over {MESH_MEMORY_LIMIT}")
+    if cells == MESH_CELLS and not (launches["mesh_serve_tp"]["flash_attention"] and
+                                    launches["mesh_serve_tp"]["decode_attention"] and
+                                    launches["mesh_train"]["flash_attention"]):
+        problems.append(f"the mesh paths launched {launches}")
+    if problems:
+        raise AssertionError("phase 3m: " + "; ".join(problems))
     return launches
 
 
@@ -2587,7 +3206,11 @@ def precompile_main(names) -> int:
 
 # ------------------------------------------------------------------------ main
 
-def main() -> int:
+def main(mesh_only=False) -> int:
+    """The whole run. ``mesh_only`` (``--mesh-only [CELL...]``, for work on
+    phase 3m): phase 1, phase 2's decode rows, phase 3t's uninterrupted run
+    as the reference and phase 3m (those cells), then exit with no result
+    line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -2693,6 +3316,21 @@ def main() -> int:
                      (3, 100, 16, 16, 64, [1, 64, 100], "bfloat16"),
                      (2, 2100, 24, 8, 128, [2100, 1500], "bfloat16")]   # 33 splits
     decode_cases += FAMILY_DECODE_CASES
+    # phase 3m (a)'s local shape: serve_tp puts batch on data and heads on
+    # model, so each rank decodes 2 rows of 12/4 heads against 516 positions
+    decode_tp_local = (2, 516, 12, 4, 128, [516, 513], "bfloat16")
+    decode_cases.append(decode_tp_local)
+    # the stats entry at phase 3m (b)'s local shape: serve_seqkv puts batch on
+    # data and the 32,768-position cache on model, so each rank holds 2 rows
+    # of 16,384 positions; the first shard full, the second's lengths over
+    # the decode steps; then empty shards and odd shapes
+    stats_cases = [(2, 16384, 24, 8, 128, [16384] * 2, "bfloat16"),
+                   (2, 16384, 24, 8, 128, [16, 20], "bfloat16"),
+                   (2, 16384, 24, 8, 128, [0, 0], "bfloat16"),
+                   (4, 16384, 24, 8, 128, [16, 17, 0, 20], "bfloat16"),
+                   (3, 100, 4, 4, 32, [1, 0, 100], "bfloat16"),
+                   (2, 264, 24, 8, 128, [1, 200], "float32"),
+                   (3, 200, 34, 2, 64, [200, 0, 77], "float32")]
     # B, page_size, max_pages, Hq, Hkv, D, lengths, dtype; the first is the
     # decode tier's shape (8 slots, 33 pages of 16 = 528 positions)
     paged_cases = [(8, 16, 33, 24, 8, 128, [528] * 8, "bfloat16"),
@@ -2745,21 +3383,28 @@ def main() -> int:
     timed_extra = {id(jamba_flash): "jamba's shape", id(jamba_decode): "jamba's shape",
                    id(flash_admit): "the decode tier's admit shape",
                    id(flash_bucket): "the 16-row bucket's shape",
-                   id(decode_bucket): "the 16-row bucket's shape", **FAMILY_TIMED}
+                   id(decode_bucket): "the 16-row bucket's shape",
+                   id(decode_tp_local): "phase 3m serve_tp's local shape", **FAMILY_TIMED}
     results, bucket_rows, family_rows = {}, {}, {}
     for name, check, cases in (
             ("flash_attention",
              lambda c, t: check_flash(torch, F, fa, ref, gen, c, t), flash_cases),
             ("decode_attention",
              lambda c, t: check_decode(torch, F, da, ref, gen, c, t), decode_cases),
+            ("decode_attention_stats",
+             lambda c, t: check_decode_stats(torch, da, ref, gen, c, t), stats_cases),
             ("paged_decode_attention",
              lambda c, t: check_paged(torch, F, pda, da, ref, gen, c, t), paged_cases),
             ("mlstm", lambda c, t: check_mlstm(torch, mk, ref, gen, c, t), mlstm_cases),
             ("selective_scan",
              lambda c, t: check_scan(torch, F, ss, ref, gen, c, t, exp_per_s), scan_cases)):
+        if mesh_only and name not in ("decode_attention", "decode_attention_stats"):
+            continue
         rows = [check(c, i == 0 or id(c) in timed_extra) for i, c in enumerate(cases)]
         for r in rows:
-            extra = "".join(f" {k} {r[k]}" for k in ("layout_bitwise", "vs_contiguous_bitwise",
+            extra = "".join(f" {k} {r[k]}" for k in ("scaled_err_m", "rel_err_l",
+                                                     "empty_rows_exact",
+                                                     "layout_bitwise", "vs_contiguous_bitwise",
                                                      "vs_contiguous_max_abs_err",
                                                      "vs_split_order_max_abs_err",
                                                      "rerun_bitwise",
@@ -2799,6 +3444,25 @@ def main() -> int:
         register(arch)(lambda layers=layers: dataclasses.replace(get_config("llama3.2-3b"),
                                                                  n_layers=layers))
     register_train()
+    if mesh_only:
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.train import Trainer, TrainerConfig
+        ref_losses, ref_params = [], None
+        if "train" in mesh_only:
+            full = Trainer(get_config(TRAIN_ARCH), TrainerConfig(**TRAIN),
+                           AdamWConfig(**TRAIN_OPT), device="cuda", log=lambda s: None)
+            keep_params_after(full, MESH_TRAIN["steps"])
+            full.run()
+            log(run_line("single-device reference run", full))
+            ref_losses = [h["loss"] for h in full.history]
+            ref_params = [t.cpu() for t in REFERENCE.pop("params")]
+            del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as mesh_work:
+            mesh_path(torch, Path(mesh_work), ref_losses, ref_params, mesh_only)
+        phase_done("phase 3m")
+        return 0
     specs = deployed_specs()
     from repro_torch.core import compile_cache
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -2839,7 +3503,7 @@ def main() -> int:
         _, launches_3c = serve_path(
             torch, specs[XLSTM_ARCH], work / "xlstm", XLSTM_REQUESTS,
             lambda cfg, spec: {"flash_attention": 0, "decode_attention": 0,
-                               "paged_decode_attention": 0,
+                               "decode_attention_stats": 0, "paged_decode_attention": 0,
                                "mlstm": cfg.n_layers - cfg.n_layers // cfg.ssm.slstm_every,
                                "selective_scan": 0}, tokens_gate="f32")
         gc.collect()
@@ -2859,6 +3523,13 @@ def main() -> int:
         # ---- phase 3t: training on the card, llama at 2 of 28 layers, then xlstm
         launches_3t = train_path(torch, F, work / "train")
         phase_done("phase 3t")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- phase 3m: the multi-device layer, 4 ranks on the one card
+        launches_3m = mesh_path(torch, work / "mesh", REFERENCE["train_losses"],
+                                REFERENCE.pop("params"))
+        phase_done("phase 3m")
     finally:
         stop_builds(builds)
         compile_cache.disable_inductor_disk_cache()
@@ -2869,6 +3540,8 @@ def main() -> int:
                                    "src/repro/kernels/flash_attention.py:33"),
                "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:35"),
+               "decode_attention_stats": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                                          "src/repro/kernels/decode_attention.py:35"),
                "paged_decode_attention": (
                    "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
                    "src/repro/kernels/paged_decode_attention.py:40"),
@@ -2882,7 +3555,8 @@ def main() -> int:
                    "driver_taxonomy": launches_3e[name], "coalesced": launches_3f[name],
                    "xlstm_serve": launches_3c[name], "jamba_serve": launches_3d[name],
                    **{path: counts[name] for path, counts in launches_3g.items()},
-                   **{path: counts[name] for path, counts in launches_3t.items()}}
+                   **{path: counts[name] for path, counts in launches_3t.items()},
+                   **{path: counts[name] for path, counts in launches_3m.items()}}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
@@ -2905,4 +3579,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(precompile_main(sys.argv[2:]) if sys.argv[1:2] == ["--precompile"] else main())
+    if sys.argv[1:2] == ["--precompile"]:
+        sys.exit(precompile_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--mesh-only"]:
+        sys.exit(main(mesh_only=tuple(sys.argv[2:]) or MESH_CELLS))
+    sys.exit(main())

@@ -16,6 +16,11 @@ Fault-tolerance contract:
     it in a background thread, overlapping I/O with the next train steps; at
     most one save is in flight, and ``wait`` re-raises a failed one;
   * retention keeps the last ``keep`` checkpoints.
+
+On a mesh the tree holds DTensors: ``save`` gathers each whole
+(``full_tensor``, a collective, so every rank calls ``save`` on its main
+thread), and only the manager made with ``write=True`` (rank 0) writes.
+Every rank restores from the files; the caller lays the tree out.
 """
 from __future__ import annotations
 
@@ -28,12 +33,21 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.core.snapshot import SnapshotStore
+from repro_torch.dist.sharding import is_dtensor
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(t):
+        t = t.full_tensor()
+    return t.detach().to("cpu", copy=True)
 
 
 class CheckpointManager:
-    def __init__(self, directory: str | Path, keep: int = 3) -> None:
+    def __init__(self, directory: str | Path, keep: int = 3, write: bool = True) -> None:
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.store = SnapshotStore(self.dir)
         self.keep = keep
         self._async_thread: Optional[threading.Thread] = None
@@ -50,6 +64,8 @@ class CheckpointManager:
 
     def steps(self) -> List[int]:
         out = []
+        if not self.dir.is_dir():
+            return out
         for d in self.dir.iterdir():
             if d.name.startswith("step_") and self.store.has(d.name):
                 try:
@@ -66,10 +82,15 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, blocking: bool = True) -> None:
         """Copy ``tree`` (tensors on any device) to host memory now, then
         write it as checkpoint ``step``: here, or in a thread when not
-        ``blocking``."""
+        ``blocking`` (a manager that does not write only gathers)."""
         self.wait()                           # at most one save in flight
+        if not self.write:                    # the gathers only: rank 0 writes
+            for t in pytree.leaves(tree):
+                if is_dtensor(t):
+                    t.full_tensor()
+            return
         t0 = time.perf_counter()
-        host = pytree.tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+        host = pytree.tree_map(_host_copy, tree)
         copy_s = time.perf_counter() - t0
 
         def _write():

@@ -132,6 +132,8 @@ def library() -> ctypes.CDLL:
             lib.repro_flash_tensor_map_us.restype = ctypes.c_double
             lib.repro_decode_attention.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
             lib.repro_decode_attention.restype = i32
+            lib.repro_decode_attention_stats.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+            lib.repro_decode_attention_stats.restype = i32
             lib.repro_paged_decode_attention.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
             lib.repro_paged_decode_attention.restype = i32
             lib.repro_mlstm.argtypes = [ptr] * 12 + [i32] * 6 + [ctypes.c_float, ptr]

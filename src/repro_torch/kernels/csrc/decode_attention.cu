@@ -46,17 +46,39 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 }
 
 template <typename T, int D>
+cudaError_t launch_partial(const void* q, const void* k, const void* v, const int* length,
+                           float* scratch, int B, int S, int Hkv, int G, int NS,
+                           cudaStream_t stream) {
+  const dim3 grid(NS, Hkv * decode::row_tiles(G), B);
+  decode_partial_kernel<T, D><<<grid, decode::THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), length,
+      scratch, B, S, Hkv, G, NS);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
 struct Launch {
   static cudaError_t run(const void* q, const void* k, const void* v, const int* length,
                          void* o, float* scratch, int B, int S, int Hkv, int G, int NS,
                          cudaStream_t stream) {
-    const dim3 grid(NS, Hkv * decode::row_tiles(G), B);
-    decode_partial_kernel<T, D><<<grid, decode::THREADS, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), length,
-        scratch, B, S, Hkv, G, NS);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err =
+        launch_partial<T, D>(q, k, v, length, scratch, B, S, Hkv, G, NS, stream);
     if (err != cudaSuccess) return err;
     return decode::launch_merge<T>(scratch, length, o, B, Hkv, G, D, NS, S, stream);
+  }
+};
+
+// The stats entry: the same split kernel, then the unnormalised merge.
+template <typename T, int D>
+struct LaunchStats {
+  static cudaError_t run(const void* q, const void* k, const void* v, const int* length,
+                         float* m, float* l, float* acc, float* scratch, int B, int S,
+                         int Hkv, int G, int NS, cudaStream_t stream) {
+    const cudaError_t err =
+        launch_partial<T, D>(q, k, v, length, scratch, B, S, Hkv, G, NS, stream);
+    if (err != cudaSuccess) return err;
+    return decode::launch_merge_stats(scratch, length, m, l, acc, B, Hkv, G, D, NS, S,
+                                      stream);
   }
 };
 
@@ -78,4 +100,21 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
   return repro::decode::dispatch<repro::Launch>(
       dtype, D, q, k, v, static_cast<const int*>(length), o, static_cast<float*>(scratch), B,
       S, Hkv, Hq / Hkv, n_splits, static_cast<cudaStream_t>(stream));
+}
+
+// The same attention left as its online-softmax stats, for a log-sum-exp
+// merge across ranks: m, l: f32 [B, Hkv, Hq / Hkv] (m in natural-log units,
+// the reference's NEG_INF = -1e30 where a row has no key); acc: f32
+// [B, Hkv, Hq / Hkv, D], unnormalised. Other arguments as above.
+extern "C" int repro_decode_attention_stats(const void* q, const void* k, const void* v,
+                                            const void* length, void* m, void* l, void* acc,
+                                            void* scratch, int dtype, int B, int S, int Hq,
+                                            int Hkv, int D, int n_splits, void* stream) {
+  if (B <= 0 || S < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      n_splits != repro::decode::n_splits(S))
+    return cudaErrorInvalidValue;
+  return repro::decode::dispatch<repro::LaunchStats>(
+      dtype, D, q, k, v, static_cast<const int*>(length), static_cast<float*>(m),
+      static_cast<float*>(l), static_cast<float*>(acc), static_cast<float*>(scratch), B, S,
+      Hkv, Hq / Hkv, n_splits, static_cast<cudaStream_t>(stream));
 }

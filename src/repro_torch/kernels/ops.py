@@ -19,6 +19,17 @@ any device and count no launches; being one node each, they keep a prompt's
 hundreds of sLSTM steps and each decode step's recurrent arithmetic out of
 the exported graph, whose size sets the cold start's deserialize time.
 
+:func:`decode_attention_stats` (``repro_torch::decode_attention_stats``)
+is the decode kernel's second entry: the online-softmax stats (m, l, acc)
+of one shard of a sequence-sharded cache, which ``repro_torch.dist.
+flash_decode`` merges across ranks.
+
+Every custom op has DTensor sharding rules (:func:`register_op_shardings`,
+registered when a mesh is made): all replicated, or sharded over the batch,
+and for the attention ops also over the heads (q heads and kv heads
+together). A DTensor laid out otherwise is redistributed to one of those
+first; an op with no rule would be refused by DTensor.
+
 ``flash_attention``, ``mlstm``, ``selective_scan`` and ``slstm_scan`` have
 an autograd formula: the backward recomputes the VJP of the op's plain
 version (:mod:`repro_torch.kernels.ref`) on the saved inputs, as the JAX
@@ -46,6 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mlstm as mk
@@ -100,6 +112,7 @@ def launch_counts() -> dict:
     """Kernel launches so far, by kernel name."""
     return {"flash_attention": fa.LAUNCHES.count,
             "decode_attention": da.LAUNCHES.count,
+            "decode_attention_stats": da.STATS_LAUNCHES.count,
             "paged_decode_attention": pda.LAUNCHES.count,
             "mlstm": mk.LAUNCHES.count,
             "selective_scan": ss.LAUNCHES.count}
@@ -108,6 +121,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for kernel in (fa, da, pda, mk, ss):
         kernel.LAUNCHES.reset()
+    da.STATS_LAUNCHES.reset()
 
 
 # ------------------------------------------------------------------ custom ops
@@ -116,7 +130,7 @@ def reset_launch_counts() -> None:
 def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, q_offset: int) -> torch.Tensor:
     if use_kernel(q.device):
-        return fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        return fa.flash_attention(*_dense(q, k, v), causal=causal, q_offset=q_offset)
     return ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
@@ -129,7 +143,7 @@ def _(q, k, v, causal, q_offset):
 def _decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                          length: torch.Tensor) -> torch.Tensor:
     if use_kernel(q.device):
-        return da.decode_attention(q, k_cache, v_cache, length)
+        return da.decode_attention(*_dense(q, k_cache, v_cache), length)
     return ref.decode_attention(q, k_cache, v_cache, length)
 
 
@@ -138,12 +152,30 @@ def _(q, k_cache, v_cache, length):
     return torch.empty_like(q)
 
 
+@torch.library.custom_op("repro_torch::decode_attention_stats", mutates_args=())
+def _decode_attention_stats_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                               length: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if use_kernel(q.device):
+        return da.decode_attention_stats(*_dense(q, k_cache, v_cache), length)
+    return ref.decode_attention(q, k_cache, v_cache, length, return_stats=True)
+
+
+@_decode_attention_stats_op.register_fake
+def _(q, k_cache, v_cache, length):
+    B, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty((B, Hkv, Hq // Hkv), **f32), torch.empty((B, Hkv, Hq // Hkv), **f32),
+            torch.empty((B, Hkv, Hq // Hkv, D), **f32))
+
+
 @torch.library.custom_op("repro_torch::paged_decode_attention", mutates_args=())
 def _paged_decode_attention_op(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor, page_table: torch.Tensor,
                                lengths: torch.Tensor) -> torch.Tensor:
     if use_kernel(q.device):
-        return pda.paged_decode_attention(q, k_pages, v_pages, page_table, lengths)
+        return pda.paged_decode_attention(*_dense(q, k_pages, v_pages, page_table), lengths)
     return ref.paged_decode_attention(q, k_pages, v_pages, page_table, lengths)
 
 
@@ -159,7 +191,7 @@ def _mlstm_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_raw: torch.Te
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     state = None if C is None else (C, n, m)
     if use_kernel(q.device):
-        h, (C, n, m) = mk.mlstm(q, k, v, i_raw, f_raw, state)
+        h, (C, n, m) = mk.mlstm(*_dense(q, k, v, i_raw, f_raw), state)
     else:
         h, (C, n, m) = ref.mlstm_chunked(q, k, v, i_raw, f_raw, state=state)
     return h, C, n, m
@@ -178,7 +210,7 @@ def _selective_scan_op(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                        b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
                        h0: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     if use_kernel(x.device):
-        return ss.selective_scan(x, dt, a_log, b, c, d_skip, h0)
+        return ss.selective_scan(*_dense(x, dt, a_log, b, c, d_skip), h0)
     return ref.selective_scan(x, dt, a_log, b, c, d_skip, h0)
 
 
@@ -234,33 +266,90 @@ def _(gates, r, b_in, c, n, h, m):
 
 # ------------------------------------------------------------------ autograd
 
-def _vjp_of(plain, n_tensors: int):
+def _vjp_of(plain, n_tensors: int, name: str):
     """A ``register_autograd`` backward for a custom op whose first
     ``n_tensors`` arguments are tensors (or None): recompute ``plain`` on
     those inputs under autograd and return its vector-Jacobian product, as
     the JAX package's flash attention does (``_flash_bwd`` is the
-    reference's VJP). ``plain`` maps the op's arguments to its outputs."""
+    reference's VJP). ``plain`` maps the op's arguments to its outputs.
+
+    On DTensors the VJP runs on each rank's local shards, laid out as the
+    forward's sharding rule laid them out (``_RULES[name]``, read from the
+    output's placements): the op is local under every rule, and so is its
+    VJP. The gradient of an input the batch rule keeps whole (a weight) is
+    each rank's partial sum, ``Partial`` over that mesh dim."""
 
     def setup_context(ctx, inputs, output):
         ctx.args = inputs[n_tensors:]
         ctx.save_for_backward(*[t if t is not None else torch.empty(0)
                                 for t in inputs[:n_tensors]])
         ctx.present = [t is not None for t in inputs[:n_tensors]]
+        first = output[0] if isinstance(output, tuple) else output
+        ctx.placements = tuple(first.placements) if is_dtensor(first) else None
+        ctx.mesh = first.device_mesh if ctx.placements is not None else None
 
-    def backward(ctx, *grads):
+    def local_vjp(saved, present, args, grads):
         leaves = [t.detach().requires_grad_(t.is_floating_point()) if here else None
-                  for t, here in zip(ctx.saved_tensors, ctx.present)]
+                  for t, here in zip(saved, present)]
         with torch.enable_grad():
-            outs = plain(*leaves, *ctx.args)
+            outs = plain(*leaves, *args)
             outs = outs if isinstance(outs, tuple) else (outs,)
             pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
             wrt = [t for t in leaves if t is not None and t.requires_grad]
             got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
                                            [g for _, g in pairs], allow_unused=True))
-        dx = [next(got) if t is not None and t.requires_grad else None for t in leaves]
-        return (*dx, *[None] * len(ctx.args))
+        return [next(got) if t is not None and t.requires_grad else None for t in leaves]
+
+    def backward(ctx, *grads):
+        if ctx.placements is None:
+            dx = local_vjp(ctx.saved_tensors, ctx.present, ctx.args, grads)
+            return (*dx, *[None] * len(ctx.args))
+        from torch.distributed.tensor import DTensor, Partial
+
+        in_pl, grad_pl = _input_placements(name, ctx.placements)
+        mesh = ctx.mesh
+        saved = [t.redistribute(mesh, pl).to_local() if here else None
+                 for t, pl, here in zip(ctx.saved_tensors, in_pl, ctx.present)]
+        local_g = [None if g is None else g.redistribute(mesh, ctx.placements).to_local()
+                   for g in grads]
+        dx = local_vjp(saved, ctx.present, ctx.args, local_g)
+        out = []
+        for d, pl, gpl in zip(dx, in_pl, grad_pl):
+            if d is None:
+                out.append(None)
+                continue
+            d = DTensor.from_local(d.contiguous(), mesh,
+                                   [Partial() if partial else p for p, partial in zip(pl, gpl)],
+                                   run_check=False)
+            out.append(d.redistribute(mesh, pl))
+        return (*out, *[None] * len(ctx.args))
 
     return backward, setup_context
+
+
+def _input_placements(name: str, out_pl: tuple):
+    """(per input, its placements) under the rule of ``_RULES[name]`` that
+    gives the output ``out_pl``, and (per input, per mesh dim) whether its
+    local gradient is a partial sum: an input kept whole while the batch is
+    sharded."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    _outs, batch, heads = _RULES[name]
+    in_pl = [[] for _ in batch]
+    partial = [[] for _ in batch]
+    for p in out_pl:
+        for i, code in enumerate(batch):
+            if p.is_shard(0):
+                in_pl[i].append(Shard(0) if code == "b" else Replicate())
+                partial[i].append(code != "b")
+            elif p.is_shard():
+                d = heads[i]
+                in_pl[i].append(Shard(d) if d is not None else Replicate())
+                partial[i].append(d is None)
+            else:
+                in_pl[i].append(Replicate())
+                partial[i].append(False)
+    return [tuple(p) for p in in_pl], [tuple(p) for p in partial]
 
 
 def _flash_plain(q, k, v, causal, q_offset):
@@ -273,17 +362,75 @@ def _mlstm_plain(q, k, v, i_raw, f_raw, C, n, m):
     return h, C, n, m
 
 
-for _op, _plain, _n in ((_flash_attention_op, _flash_plain, 3),
-                        (_mlstm_op, _mlstm_plain, 8),
-                        (_selective_scan_op, ref.selective_scan, 7),
-                        (_slstm_scan_op, ref.slstm_scan, 7)):
-    _bwd, _setup = _vjp_of(_plain, _n)
+for _op, _plain, _n, _name in ((_flash_attention_op, _flash_plain, 3, "flash_attention"),
+                               (_mlstm_op, _mlstm_plain, 8, "mlstm"),
+                               (_selective_scan_op, ref.selective_scan, 7, "selective_scan"),
+                               (_slstm_scan_op, ref.slstm_scan, 7, "slstm_scan")):
+    _bwd, _setup = _vjp_of(_plain, _n, _name)
     _op.register_autograd(_bwd, setup_context=_setup)
+
+
+# ------------------------------------------------------------- sharding rules
+
+def _strategies(outs: int, batch: list, heads: Optional[list] = None):
+    """A ``register_sharding`` rule: (output placements, input placements)
+    for one mesh dim, all replicated, sharded over the batch (``batch``: the
+    inputs' placements, "b" = Shard(0), "r" = Replicate, None = not a
+    tensor) and, given ``heads`` (the inputs' head dims, None = replicated,
+    and the outputs' head dim last), over the heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def pl(code):
+        return {"b": Shard(0), "r": Replicate(), None: None}[code]
+
+    def rule(*args):
+        present = [a is not None for a in args]
+        ins_b = [pl(c) if here else None for c, here in zip(batch, present)]
+        ins_r = [Replicate() if c is not None and here else None
+                 for c, here in zip(batch, present)]
+        out = [([Replicate()] * outs, ins_r), ([Shard(0)] * outs, ins_b)]
+        if heads is not None:
+            *in_dims, out_dim = heads
+            ins_h = [(Shard(d) if d is not None else Replicate()) if c is not None and here
+                     else None for c, d, here in zip(batch, in_dims, present)]
+            out.append(([Shard(out_dim)] * outs, ins_h))
+        return out
+
+    return rule
+
+
+# op -> (outputs, batch placements of the inputs, head dims of the inputs + output's)
+_RULES = {
+    "flash_attention": (1, ["b", "b", "b", None, None], [2, 2, 2, None, None, 2]),
+    "decode_attention": (1, ["b", "b", "b", "b"], [1, 2, 2, None, 1]),
+    "decode_attention_stats": (3, ["b", "b", "b", "b"], [1, 2, 2, None, 1]),
+    "paged_decode_attention": (1, ["b", "r", "r", "b", "b"], [1, 2, 2, None, None, 1]),
+    "mlstm": (4, ["b"] * 8, None),
+    "selective_scan": (2, ["b", "b", "r", "b", "b", "r", "b"], None),
+    "slstm_scan": (5, ["b", "r", "r", "b", "b", "b", "b"], None),
+    "mlstm_step": (1, ["b"] * 8, None),
+    "mamba_step": (1, ["b", "b", "r", "b", "b", "r", "b"], None),
+}
+_REGISTERED = []
+
+
+def register_op_shardings() -> None:
+    """Register every custom op's DTensor sharding rule (once per process;
+    imports DTensor, so it runs when a mesh is made, not at import)."""
+    if _REGISTERED:
+        return
+    from torch.distributed.tensor.experimental import register_sharding
+    for name, (outs, batch, heads) in _RULES.items():
+        register_sharding(getattr(torch.ops.repro_torch, name).default)(
+            _strategies(outs, batch, heads))
+    _REGISTERED.append(True)
 
 
 # ------------------------------------------------------------------ entry points
 #
-# Every tensor an op reads but does not write is passed dense (``_dense``).
+# Every tensor an op reads but does not write is passed dense (``_dense``),
+# and again inside the op before a kernel launch: a DTensor's local shard
+# can be strided where the DTensor's own layout says dense.
 # An AOTInductor program hands a strided view (a column slice of a
 # projection) to a Python custom op with the wrong layout: jamba's decode
 # step read ``proj[:, dtr:dtr + ds]`` as garbage until its inputs were made
@@ -305,6 +452,16 @@ def decode_attention(q, k_cache, v_cache, length):
     B = q.shape[0]
     length = torch.as_tensor(length, dtype=torch.int32, device=q.device).expand(B)
     return torch.ops.repro_torch.decode_attention(*_dense(q, k_cache, v_cache, length))
+
+
+def decode_attention_stats(q, k_cache, v_cache, length):
+    """The online-softmax stats of :func:`decode_attention` over a cache (one
+    shard of a sequence-sharded one): (m [B,Hkv,G], l [B,Hkv,G],
+    acc [B,Hkv,G,D]) in f32, unnormalised. length: int, or int32 tensor
+    [] / [B]; a row of length 0 gives m = ``ref.NEG_INF``, l = 0, acc = 0."""
+    B = q.shape[0]
+    length = torch.as_tensor(length, dtype=torch.int32, device=q.device).expand(B)
+    return torch.ops.repro_torch.decode_attention_stats(*_dense(q, k_cache, v_cache, length))
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths):

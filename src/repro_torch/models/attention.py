@@ -1,13 +1,19 @@
 """GQA attention in two modes: full sequence (prefill, returns K/V) and cached decode.
 
 Port of ``repro.models.attention`` (``attention_full`` with cross-attention,
-``attention_decode`` with cross decode, and ``attention_decode_paged``). The
-sequence-sharded decode branch comes with a later slice.
+``attention_decode`` with cross decode and the sequence-sharded branch, and
+``attention_decode_paged``), with the JAX package's ``constrain`` annotations.
+Under sharding rules whose ``kv_seq`` shards the cache (``serve_seqkv``),
+``attention_decode`` runs distributed flash decoding
+(``repro_torch.dist.flash_decode``).
 
 ``attention_decode`` and ``attention_decode_paged`` write the new K/V into
 the cache or the page pool **in place** and return the same tensors (the JAX
 versions return updated copies): a per-step copy of the cache, or of a
-layer's page pool, would be bandwidth the decode step does not need.
+layer's page pool, would be bandwidth the decode step does not need. A cache
+that is a DTensor is written through each rank's local shard (DTensor has no
+rule for writing a slice of a sharded dim): the token's K/V land at
+``pos - offset`` on the rank whose slice of the sequence holds ``pos``.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist.flash_decode import decode_attention_seqsharded, seq_shard_axis
+from repro_torch.dist.sharding import active_rules, constrain, current_mesh, is_dtensor, replicated
 from repro_torch.kernels import ops
 from repro_torch.models.layers import bias_spec, dense_spec, rotate
 
@@ -60,7 +68,7 @@ def _out(cfg, p, o):
     y = torch.matmul(o.reshape(B, S, -1), p["wo"])
     if "bo" in p:
         y = y + p["bo"]
-    return y
+    return constrain(y, "batch", "seq", "embed")
 
 
 def attention_full(cfg, p: dict, x: torch.Tensor, rope, *, causal: bool = True,
@@ -73,6 +81,9 @@ def attention_full(cfg, p: dict, x: torch.Tensor, rope, *, causal: bool = True,
     k, v = _proj_kv(cfg, p, x if kv_from is None else kv_from)
     if kv_from is None and rope is not None:
         q, k = rotate(q, rope), rotate(k, rope)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "kv_seq", "kv_heads", "head_dim")
+    v = constrain(v, "batch", "kv_seq", "kv_heads", "head_dim")
     o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
                       causal=causal and kv_from is None, q_offset=q_offset)
     return _out(cfg, p, o), (k, v)
@@ -92,22 +103,55 @@ def attention_decode(cfg, p: dict, x_t: torch.Tensor, k_cache: torch.Tensor,
     B = x_t.shape[0]
     q = _proj_q(cfg, p, x_t)                                          # [B,1,nq,hd]
     if cross:
-        o = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache, k_cache.shape[1])
-        return _out(cfg, p, o[:, None]), k_cache, v_cache
-    k_t, v_t = _proj_kv(cfg, p, x_t)                                  # [B,1,nkv,hd]
-    if rope is not None:
-        q, k_t = rotate(q, rope), rotate(k_t, rope)
-    if isinstance(pos, int):
-        k_cache[:, pos:pos + 1] = k_t                 # copy_ casts to the cache dtype
-        v_cache[:, pos:pos + 1] = v_t
-        length = torch.full((B,), pos + 1, dtype=torch.int32, device=x_t.device)
+        length = k_cache.shape[1]
     else:
-        rows = torch.arange(B, device=x_t.device)
-        k_cache[rows, pos] = k_t[:, 0]
-        v_cache[rows, pos] = v_t[:, 0]
-        length = (pos + 1).to(torch.int32)
-    o = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache, length)  # [B,nq,hd]
+        k_t, v_t = _proj_kv(cfg, p, x_t)                              # [B,1,nkv,hd]
+        if rope is not None:
+            q, k_t = rotate(q, rope), rotate(k_t, rope)
+        if is_dtensor(k_cache):
+            _write_local(k_cache, pos, k_t)
+            _write_local(v_cache, pos, v_t)
+            length = pos + 1
+        elif isinstance(pos, int):
+            k_cache[:, pos:pos + 1] = k_t             # copy_ casts to the cache dtype
+            v_cache[:, pos:pos + 1] = v_t
+            length = torch.full((B,), pos + 1, dtype=torch.int32, device=x_t.device)
+        else:
+            rows = torch.arange(B, device=x_t.device)
+            k_cache[rows, pos] = k_t[:, 0]
+            v_cache[rows, pos] = v_t[:, 0]
+            length = (pos + 1).to(torch.int32)
+    k_cache = constrain(k_cache, "batch", "kv_seq", "kv_heads", "head_dim")
+    v_cache = constrain(v_cache, "batch", "kv_seq", "kv_heads", "head_dim")
+    # distributed flash decoding when the cache sequence dim is mesh-sharded
+    mesh = current_mesh()
+    axis = seq_shard_axis(active_rules(), mesh, k_cache.shape[1])
+    if axis is not None:
+        o = decode_attention_seqsharded(q[:, 0], k_cache, v_cache, length, mesh, axis)
+    else:
+        o = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache, length)  # [B,nq,hd]
     return _out(cfg, p, o[:, None]), k_cache, v_cache
+
+
+def _write_local(cache, pos, tok) -> None:
+    """Write ``tok`` [B,1,nkv,hd] at position ``pos`` (an int) of a DTensor
+    cache [B,S,nkv,hd], through the local shard of each rank: the token is
+    laid out as the cache but whole along the sequence, and the rank whose
+    slice of the sequence holds ``pos`` writes it at ``pos - offset``."""
+    from torch.distributed.tensor import Replicate
+
+    if not isinstance(pos, int):
+        raise NotImplementedError("a DTensor cache takes one position for every row")
+    mesh, pl = cache.device_mesh, cache.placements
+    local = cache.to_local()
+    offset = 0
+    for i, p in enumerate(pl):
+        if p.is_shard(1):
+            offset += mesh.get_local_rank(i) * local.shape[1]
+    tok_pl = [Replicate() if p.is_shard(1) else p for p in pl]
+    tok = replicated(tok, mesh).redistribute(mesh, tok_pl).to_local()
+    if offset <= pos < offset + local.shape[1]:
+        local[:, pos - offset:pos - offset + 1] = tok
 
 
 def attention_decode_paged(cfg, p: dict, x_t: torch.Tensor, k_pages: torch.Tensor,

@@ -7,8 +7,9 @@ plain tensor tree, keyed and laid out as in the JAX package (weights are
 ``[d_in, d_out]``, stacked layers lead with ``[L, ...]``), so a JAX parameter
 tree or snapshot carries over with no transform.
 
-The JAX package's ``constrain`` (sharding hints) is dropped: the port runs on
-one device.
+The JAX package's ``constrain`` sharding annotations sit at its sites
+(``repro_torch.dist.sharding.constrain``: the identity outside a
+``use_rules`` context).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import pytree
+from repro_torch.dist.sharding import constrain, is_dtensor
 from repro_torch.dtypes import torch_dtype
 
 # (generator, shape, dtype) -> tensor on the generator's device
@@ -89,7 +91,7 @@ def init_tree(specs, gen: torch.Generator):
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor], eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = torch.mean(xf * xf, dim=xf.dim() - 1, keepdim=True)   # dims >= 0: DTensor, torch 2.11
     y = xf * torch.rsqrt(var + eps)
     if weight is not None:
         y = y * weight                  # promotes a bf16 weight to f32 exactly
@@ -178,8 +180,13 @@ def rotate(x: torch.Tensor, tables) -> torch.Tensor:
     nodes instead of 12, which the exported serve program repeats ~1000 times."""
     cos, sin = tables
     xf = x.float()
-    out = xf * cos + torch.roll(xf, x.shape[-1] // 2, dims=-1) * sin
-    return out.to(x.dtype)
+    half = x.shape[-1] // 2
+    if is_dtensor(xf):          # the same values; DTensor has no rule for roll on torch 2.11
+        last = xf.dim() - 1
+        turned = torch.cat([xf.narrow(last, half, half), xf.narrow(last, 0, half)], dim=last)
+    else:
+        turned = torch.roll(xf, half, dims=-1)
+    return (xf * cos + turned * sin).to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -237,17 +244,19 @@ def apply_mlp(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.act in ("swiglu", "geglu"):
         g = torch.matmul(x, p["w_gate"])
         u = torch.matmul(x, p["w_up"])
+        g = constrain(g, "batch", "seq", "ffn")
         act = F.silu(g) if cfg.act == "swiglu" else _gelu(g)
         h = act * u
     else:
         h = torch.matmul(x, p["w_up"])
         if "b_up" in p:
             h = h + p["b_up"]
+        h = constrain(h, "batch", "seq", "ffn")
         h = _gelu(h)
     y = torch.matmul(h, p["w_down"])
     if "b_down" in p:
         y = y + p["b_down"]
-    return y
+    return constrain(y, "batch", "seq", "embed")
 
 
 # -------------------------------------------------------------------- embedding
@@ -266,7 +275,7 @@ def embedding_specs(cfg, dtype, max_seq: int):
 
 def embed_tokens(cfg, p: dict, tokens: torch.Tensor, pos_offset=0) -> torch.Tensor:
     """pos_offset: int or 0-d tensor, or [B] tensor of per-row offsets."""
-    x = p["tok"][tokens]
+    x = _lookup(p["tok"], tokens) if is_dtensor(p["tok"]) else p["tok"][tokens]
     if "pos" in p:
         S = tokens.shape[1]
         ar = torch.arange(S, device=tokens.device)
@@ -274,9 +283,39 @@ def embed_tokens(cfg, p: dict, tokens: torch.Tensor, pos_offset=0) -> torch.Tens
             x = x + p["pos"][pos_offset + ar][None]
         else:
             x = x + p["pos"][pos_offset[:, None] + ar[None]]
-    return x.to(torch_dtype(cfg.dtype))
+    return constrain(x.to(torch_dtype(cfg.dtype)), "batch", "seq", "embed")
+
+
+def _lookup(table, tokens):
+    """``table[tokens]`` for a DTensor table [V, d], on each rank's own token
+    rows and its own slice of the vocabulary: a token outside the slice gives
+    zeros, and over the mesh dims that split the vocabulary the rows are a
+    ``Partial`` sum; the gradient of the slice is each rank's partial sum
+    over the mesh dims that split the tokens. (DTensor's rules for this
+    gather and its scatter-add fail on torch 2.11 and leave a mask the wrong
+    shape on 2.13.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, tab_pl = table.device_mesh, list(table.placements)
+    if not all(p.is_replicate() or (type(p) is Shard and p.dim == 0) for p in tab_pl):
+        tab_pl = [Replicate()] * mesh.ndim          # not contiguous row blocks: whole
+        table = table.redistribute(mesh, tab_pl)
+    tok_pl = list(tokens.placements) if is_dtensor(tokens) else [Replicate()] * mesh.ndim
+    if any(t.is_shard() and p.is_shard() for t, p in zip(tok_pl, tab_pl)):
+        raise NotImplementedError(f"tokens {tok_pl} and their table {tab_pl} split one mesh dim")
+    local = table.to_local(grad_placements=[
+        Partial() if t.is_shard() else (Shard(0) if p.is_shard() else Replicate())
+        for t, p in zip(tok_pl, tab_pl)])
+    (rows_here, _), (start, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, tab_pl)
+    idx = (tokens.to_local() if is_dtensor(tokens) else tokens) - start
+    inside = (idx >= 0) & (idx < rows_here)
+    rows = local[idx.clamp(0, rows_here - 1)] * inside[..., None].to(local.dtype)
+    return DTensor.from_local(rows, mesh, [Partial() if p.is_shard() else t
+                                           for t, p in zip(tok_pl, tab_pl)], run_check=False)
 
 
 def logits_head(cfg, emb_params: dict, x: torch.Tensor) -> torch.Tensor:
     w = emb_params["tok"].T if cfg.tie_embeddings else emb_params["unembed"]
-    return torch.matmul(x, w)
+    return constrain(torch.matmul(x, w), "batch", "seq", "vocab")

@@ -11,6 +11,9 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import (
+    active_rules, current_mesh, is_dtensor, pad_sharded, placements, replicated,
+)
 from repro_torch.dtypes import torch_dtype
 from repro_torch.models.layers import (
     ParamSpec, apply_norm, embed_tokens, embedding_specs, init_tree, is_spec, logits_head,
@@ -84,8 +87,8 @@ class Model:
         x, _, aux = stack_forward(self.cfg, params["stack"], x, positions, "train",
                                   enc_out=enc_out)
         logits = self._head(params, x).float()                          # [B, S, V]
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+        logz = torch.logsumexp(logits, dim=logits.dim() - 1)  # dims >= 0: DTensor, torch 2.11
+        gold = _label_logits(logits, labels)
         ce = (logz - gold).mean()
         zloss = LM_Z_LOSS * logz.square().mean()
         total = ce + aux + zloss
@@ -109,18 +112,22 @@ class Model:
         return logits, {"inner": self._pad_cache(inner, B, capacity), "pos": S}
 
     def _pad_cache(self, inner, batch: int, capacity: int):
-        target = pytree.tree_map(lambda s: s.shape,
-                                 stack_cache_specs(self.cfg, batch, capacity),
-                                 is_leaf=is_spec)
+        """``inner`` zero-padded to the cache specs' shapes; under sharding
+        rules, each leaf laid out by its spec's axes (``pad_sharded``)."""
+        specs = stack_cache_specs(self.cfg, batch, capacity)
+        rules, mesh = active_rules(), current_mesh()
 
-        def pad(leaf, tshape):
-            if tuple(leaf.shape) == tuple(tshape):
+        def pad(leaf, spec):
+            if rules is not None and mesh is not None:
+                return pad_sharded(leaf, spec.shape, placements(rules, mesh, spec.axes,
+                                                                spec.shape), mesh)
+            if tuple(leaf.shape) == tuple(spec.shape):
                 return leaf
-            out = leaf.new_zeros(tshape)
+            out = leaf.new_zeros(spec.shape)
             out[tuple(slice(0, c) for c in leaf.shape)] = leaf
             return out
 
-        return pytree.tree_map(pad, inner, target)
+        return pytree.tree_map(pad, inner, specs)
 
     # ------------------------------------------------------------------ decode
     def decode(self, params, cache, token: torch.Tensor):
@@ -168,6 +175,31 @@ class Model:
             "pos": ParamSpec((), torch.int32, (),
                              lambda gen, s, d: torch.zeros(s, dtype=d, device=gen.device)),
         }
+
+
+def _label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[b, s, labels[b, s]]`` -> [B, S]. On a DTensor each rank picks
+    the labels that fall in its slice of the vocabulary, and where the vocab
+    dim is sharded the ranks' picks are summed (``Partial``); DTensor's own
+    rules for this gather (and its scatter-add backward) leave the mask the
+    wrong shape on torch 2.13 and fail on torch 2.11."""
+    labels = labels.long()
+    if not is_dtensor(logits):
+        return torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, pl = logits.device_mesh, logits.placements
+    local = logits.to_local()
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, list(pl))
+    row_pl = [Replicate() if p.is_shard(2) else p for p in pl]
+    lab = replicated(labels, mesh).redistribute(mesh, row_pl).to_local() - offset[2]
+    inside = (lab >= 0) & (lab < local.shape[2])
+    picked = torch.take_along_dim(local, lab.clamp(0, local.shape[2] - 1)[..., None],
+                                  dim=-1)[..., 0]
+    picked = torch.where(inside, picked, 0.0)
+    return DTensor.from_local(picked, mesh,
+                              [Partial() if p.is_shard(2) else p for p in pl], run_check=False)
 
 
 def build_model(cfg: ArchConfig, max_seq: int) -> Model:

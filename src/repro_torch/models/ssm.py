@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain
 from repro_torch.dtypes import torch_dtype
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import (
@@ -103,6 +104,7 @@ def mamba_forward(cfg, p: dict, x: torch.Tensor, state=None):
     d_in, dtr, ds, cw = mamba_dims(cfg)
     conv_state, ssm_state = state if state is not None else (None, None)
     xi, z = torch.matmul(x, p["in_proj"]).split(d_in, dim=-1)
+    xi = constrain(xi, "batch", "seq", "ffn")
     xc, new_conv = _causal_depthwise_conv(xi, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc)
     proj = torch.matmul(xc, p["x_proj"])
@@ -110,7 +112,7 @@ def mamba_forward(cfg, p: dict, x: torch.Tensor, state=None):
     y, h_final = ops.selective_scan(xc, dt, p["a_log"], proj[..., dtr:dtr + ds],
                                     proj[..., dtr + ds:], p["d_skip"], h0=ssm_state)
     y = y * F.silu(z)
-    return torch.matmul(y, p["out_proj"]), (new_conv, h_final)
+    return constrain(torch.matmul(y, p["out_proj"]), "batch", "seq", "embed"), (new_conv, h_final)
 
 
 def mamba_step(cfg, p: dict, x_t: torch.Tensor, state):
@@ -175,7 +177,8 @@ def mlstm_specs(cfg, dtype, stack: Tuple[int, ...] = ()):
 
 
 def _mlstm_qkvif(cfg, p, x):
-    return torch.matmul(x, p["w_up"]), torch.matmul(x, p["w_z"])
+    xi = constrain(torch.matmul(x, p["w_up"]), "batch", "seq", "ffn")
+    return xi, torch.matmul(x, p["w_z"])
 
 
 def mlstm_forward(cfg, p: dict, x: torch.Tensor, state=None):
@@ -194,7 +197,7 @@ def mlstm_forward(cfg, p: dict, x: torch.Tensor, state=None):
     core_state = None if state is None else tuple(state[:3])
     h, (C, n, m) = ops.mlstm(q, k, v, i_raw, f_raw, state=core_state)
     h = rms_norm(h.reshape(B, S, d_in), p["hn_scale"]) * F.silu(z)
-    return torch.matmul(h, p["w_down"]), (C, n, m, new_conv)
+    return constrain(torch.matmul(h, p["w_down"]), "batch", "seq", "embed"), (C, n, m, new_conv)
 
 
 def mlstm_decode_step(cfg, p: dict, x_t: torch.Tensor, state):
@@ -258,7 +261,7 @@ def slstm_forward(cfg, p: dict, x: torch.Tensor, state=None):
     gates = torch.matmul(x, p["w_in"])                                 # [B,S,4d]
     hs, *state = ops.slstm_scan(gates, p["r"], p["b_in"], *state)
     h = rms_norm(hs.to(x.dtype), p["hn_scale"])
-    return torch.matmul(h, p["w_out"]), tuple(state)
+    return constrain(torch.matmul(h, p["w_out"]), "batch", "seq", "embed"), tuple(state)
 
 
 def slstm_step(cfg, p: dict, x_t: torch.Tensor, state):

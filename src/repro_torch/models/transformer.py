@@ -25,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import pytree
+from repro_torch.dist.sharding import constrain
 from repro_torch.dtypes import torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -560,7 +561,7 @@ def encoder_forward(cfg, sp, frames, train: bool = False):
     """frames: [B, encoder_seq, d] (the frontend stub's embeddings) ->
     [B, encoder_seq, d], through the bidirectional encoder; with ``train``
     each layer runs under :func:`maybe_remat`."""
-    x = frames.to(torch_dtype(cfg.dtype)) + sp["enc_pos"][None]
+    x = constrain(frames.to(torch_dtype(cfg.dtype)) + sp["enc_pos"][None], "batch", "seq", "embed")
 
     def layer(p, x):
         a, _ = attn.attention_full(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), None,

@@ -9,14 +9,22 @@ Gradient accumulation splits every batch leaf along axis 0 into
 by A, as the JAX package's ``lax.scan`` over micro-batches does; the metrics
 are the micro-batches' mean. The batch is a dict of tensors on the
 parameters' device.
+
+On a mesh the parameters are DTensors and ``place_batch`` lays each
+micro-batch out over the batch axes. The gradient of a parameter that the
+batch-sharded loss reaches on every rank comes back ``Partial(sum)``: each
+gradient is redistributed to its parameter's placements (the reduction over
+the batch axes) before it is accumulated or reaches AdamW, whose update is
+not linear in it.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch import pytree
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.optim.adamw import AdamW
 
 METRIC_KEYS = ("loss", "ce", "aux", "zloss")
@@ -32,16 +40,27 @@ def loss_and_grads(model, params, batch: Dict):
     with torch.enable_grad():
         loss, metrics = model.loss(pytree.unflatten(struct, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    grads = [torch.zeros_like(p) if g is None else _like(g, p) for p, g in zip(leaves, grads)]
     return grads, {k: metrics[k].detach() for k in METRIC_KEYS}
 
 
-def make_train_step(model, opt: AdamW, *, grad_accum: int = 1) -> Callable:
-    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics)."""
+def _like(g, p):
+    """The gradient ``g`` laid out as its parameter ``p`` (a DTensor's
+    ``Partial`` sums are reduced here)."""
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def make_train_step(model, opt: AdamW, *, grad_accum: int = 1,
+                    place_batch: Optional[Callable[[Dict], Dict]] = None) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics); ``place_batch`` lays out each micro-batch (on a mesh)."""
+    place = place_batch or (lambda b: b)
 
     def compute_grads(params, batch):
         if grad_accum <= 1:
-            return loss_and_grads(model, params, batch)
+            return loss_and_grads(model, params, place(batch))
 
         def split(x):
             if x.shape[0] % grad_accum:
@@ -51,12 +70,12 @@ def make_train_step(model, opt: AdamW, *, grad_accum: int = 1) -> Callable:
 
         micro = {k: split(v) for k, v in batch.items()}
         device = pytree.leaves(params)[0].device
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=device)
-               for p in pytree.leaves(params)]
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in pytree.leaves(params)]
         metrics_acc = {k: torch.zeros((), dtype=torch.float32, device=device)
                        for k in METRIC_KEYS}
         for a in range(grad_accum):
-            grads, metrics = loss_and_grads(model, params, {k: v[a] for k, v in micro.items()})
+            grads, metrics = loss_and_grads(model, params,
+                                            place({k: v[a] for k, v in micro.items()}))
             acc = [s + g.float() for s, g in zip(acc, grads)]
             del grads
             metrics_acc = {k: metrics_acc[k] + metrics[k] / grad_accum for k in METRIC_KEYS}

@@ -302,6 +302,7 @@ def test_launch_counters_start_at_zero_on_cpu(torch_deployment):
     ex.run(torch.from_numpy(dep.example_tokens()))
     ex.exit()
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+                                   "decode_attention_stats": 0,
                                    "paged_decode_attention": 0, "mlstm": 0,
                                    "selective_scan": 0}
 

@@ -15,6 +15,8 @@ from repro_torch.kernels import _cuda, ops
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+# modules of repro.dist with no counterpart, and why
+NOT_PORTED = {"compat.py"}      # shims JAX API names across JAX versions
 
 
 def _imported_modules(path: Path):
@@ -53,7 +55,13 @@ def test_port_sources_were_found():
         jax_mods = {p.name for p in (ROOT / "src" / "repro" / sub).glob("*.py")}
         port_mods = {p.name for p in (ROOT / "src" / "repro_torch" / sub).glob("*.py")}
         assert jax_mods and jax_mods <= port_mods, (sub, sorted(jax_mods - port_mods))
-    assert (ROOT / "src" / "repro_torch" / "launch" / "train.py").is_file()
+    # the multi-device layer: every module of repro.dist but compat.py, which
+    # shims JAX API names across JAX versions and has nothing to port
+    jax_dist = {p.name for p in (ROOT / "src" / "repro" / "dist").glob("*.py")} - NOT_PORTED
+    port_dist = {p.name for p in (ROOT / "src" / "repro_torch" / "dist").glob("*.py")}
+    assert {"sharding.py", "collectives.py", "flash_decode.py"} <= jax_dist <= port_dist
+    for name in ("train.py", "mesh.py", "serve.py"):
+        assert (ROOT / "src" / "repro_torch" / "launch" / name).is_file(), name
     assert {"adamw.py", "pipeline.py", "checkpoint.py", "step.py", "trainer.py",
             "train.py"} <= names
 
@@ -64,7 +72,11 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
             "repro_torch.core.autoscaler, repro_torch.core.boot, repro_torch.core.executor, "
             "repro_torch.core.batching, repro_torch.core.forecast, repro_torch.train, "
             "repro_torch.launch.train, repro_torch.data, repro_torch.optim, "
-            "repro_torch.checkpoint; "
+            "repro_torch.checkpoint, repro_torch.dist, repro_torch.dist.sharding, "
+            "repro_torch.dist.collectives, repro_torch.dist.flash_decode, "
+            "repro_torch.launch.mesh, repro_torch.launch.serve; "
+            "import torch.distributed as dist; "
+            "assert not dist.is_initialized(), 'a process group started'; "
             "from repro_torch.core import FunctionSpec, Gateway; "
             "from repro_torch.kernels import _cuda; "
             "assert _cuda._lib is None; "
@@ -104,6 +116,8 @@ def test_kernel_impl_on_cpu_tensors_raises():
         with pytest.raises(RuntimeError, match="CUDA"):
             ops.decode_attention(q[:, 0], q[:, :, :1], q[:, :, :1], 2)
         with pytest.raises(RuntimeError, match="CUDA"):
+            ops.decode_attention_stats(q[:, 0], q[:, :, :1], q[:, :, :1], 2)
+        with pytest.raises(RuntimeError, match="CUDA"):
             ops.paged_decode_attention(q[:, 0], pages, pages, table, 2)
         with pytest.raises(RuntimeError, match="CUDA"):
             ops.mlstm(q, q, q, q[..., 0], q[..., 0])
@@ -130,6 +144,8 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         da.decode_attention(q[:, 0], q, q, 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
+        da.decode_attention_stats(q[:, 0], q, q, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
         pda.paged_decode_attention(q[:, 0], q, q, torch.zeros(1, 1, dtype=torch.int32), 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         mk.mlstm(q, q, q, q[..., 0], q[..., 0])
@@ -137,10 +153,10 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
         ss.selective_scan(q[..., 0], q[..., 0], q[0, 0], q[:, :, 0], q[:, :, 0],
                           q[0, 0, :, 0])
     assert fa.LAUNCHES.count == 0 and da.LAUNCHES.count == 0 and pda.LAUNCHES.count == 0
-    assert mk.LAUNCHES.count == 0 and ss.LAUNCHES.count == 0
+    assert mk.LAUNCHES.count == 0 and ss.LAUNCHES.count == 0 and da.STATS_LAUNCHES.count == 0
     assert set(ops.launch_counts()) == {"flash_attention", "decode_attention",
-                                        "paged_decode_attention", "mlstm",
-                                        "selective_scan"}
+                                        "decode_attention_stats", "paged_decode_attention",
+                                        "mlstm", "selective_scan"}
 
 
 def test_cuda_call_without_a_toolkit_raises_instead_of_falling_back(tmp_path, monkeypatch):

@@ -144,8 +144,9 @@ def test_weight_decay_reaches_matrix_leaves_only_and_stacked_norm_scales():
     zero = {k: (np.zeros_like(v) if not isinstance(v, dict) else
                 {kk: np.zeros_like(vv) for kk, vv in v.items()}) for k, v in params.items()}
     opt = AdamW(AdamWConfig(peak_lr=1e-2, warmup=1, total_steps=10, weight_decay=0.5))
-    tp = params_from_numpy(params, device="cpu")
+    tp = params_from_numpy(params, device="cpu")        # updated in place (f32 moments)
     new, _, _ = opt.update(params_from_numpy(zero, device="cpu"), opt.init(tp), tp)
+    tp = params_from_numpy(params, device="cpu")
     assert torch.equal(new["b"], tp["b"])                          # rank 1: untouched
     for leaf in (("w",), ("emb",), ("ln", "scale")):
         a, b = new, tp
@@ -204,6 +205,7 @@ def test_train_step_matches_jax(grad_accum):
     jstep = jax_make_train_step(jm, jopt, grad_accum=grad_accum)
     tstep = make_train_step(tm, topt, grad_accum=grad_accum)
     jp2, jstate, jmet = jit(jstep, jp, jopt.init(jp), {"tokens": jnp.asarray(tokens)})
+    tp = pytree.tree_map(torch.clone, tp)        # the step updates it in place
     tp2, tstate, tmet = tstep(tp, topt.init(tp), {"tokens": torch.from_numpy(tokens)})
     assert sorted(tmet) == sorted(jmet)
     for key in jmet:

@@ -15,6 +15,8 @@
   an async save's error is raised by ``wait``; retention keeps ``keep``.
 * ``python -m repro_torch.launch.train ... --device cpu`` runs 3 steps and
   resumes from its checkpoint directory.
+* A ``Trainer`` given a mesh (a 4-rank gloo world) places each parameter
+  and moment as ``param_shardings`` says; a mesh without rules is refused.
 """
 import dataclasses
 import shutil
@@ -27,6 +29,7 @@ import torch
 
 from _torch_train_ref import one_torch_thread  # noqa: F401
 from _torch_train_ref import configs
+from _torch_world import run_world
 from repro.checkpoint import CheckpointManager as JaxCheckpointManager
 from repro.optim import AdamWConfig as JaxAdamWConfig
 from repro.train import Trainer as JaxTrainer
@@ -116,11 +119,42 @@ def test_straggler_detection_fires_on_injected_delay():
     assert any(e["step"] == 11 for e in tr.straggler_events), tr.straggler_events
 
 
-def test_a_mesh_is_refused_not_ignored():
-    with pytest.raises(NotImplementedError, match="A10b"):
+def test_a_mesh_places_each_parameter_as_param_shardings_says(tmp_path):
+    """On a (data=2, model=2) world, every parameter and moment leaf of the
+    Trainer's state, after a step, sits where ``param_shardings`` puts it,
+    and a mesh without rules is refused."""
+    with pytest.raises(ValueError, match="come together"):
         Trainer(_cfg(), _tcfg(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        Trainer(_cfg(), _tcfg(), rules=object(), device="cpu")
+    got = run_world(tmp_path, 4, """
+    import dataclasses
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import make_rules, param_shardings
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    ops.set_impl("plain")
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), dtype="float32")
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    rules = make_rules("train", mesh)
+    tr = Trainer(cfg, TrainerConfig(seq_len=16, global_batch=4, steps=1, log_every=100),
+                 AdamWConfig(total_steps=1), mesh=mesh, rules=rules, log=lambda s: None,
+                 device="cpu")
+    out = tr.run()
+    specs = tr.model.param_specs()
+    want = pytree.leaves(param_shardings(specs, rules, mesh),
+                         is_leaf=lambda x: isinstance(x, tuple))
+    got = [tuple(p.placements) for p in pytree.leaves(out["params"])]
+    moments = [tuple(p.placements) for p in pytree.leaves(out["opt_state"]["m"])]
+    RESULT["n"] = len(want)
+    RESULT["wrong"] = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    RESULT["wrong_m"] = [i for i, (g, w) in enumerate(zip(moments, want)) if g != w]
+    RESULT["sharded"] = sum(any(p.is_shard() for p in g) for g in got)
+    """)
+    for res in got:
+        assert res["n"] > 0 and res["wrong"] == [] and res["wrong_m"] == [], res
+        assert res["sharded"] > 0, res
 
 
 # ------------------------------------------------- checkpoints across packages
