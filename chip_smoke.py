@@ -8,7 +8,9 @@ sharing the card, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, run in the order 1, 2, 3t, 3m, 3, 3b, 3e, 3f, 3g, 3c, 3d, 3r, 4 (3t
+and 3m beside the early build of phase 3's programs); any failure raises and
+the script exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, compute capability, SM count and maximum SM clock; then build
@@ -21,8 +23,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    bucket programs) with AOTInductor through one compile cache under the
    run's work directory (``enable_inductor_disk_cache``); every path's
    launches are those of its compiled program (``compiled_launches``).
-   From phase 3 on, two background builds (``chip_smoke.py --precompile``,
-   ``PRECOMPILE_GROUPS``) compile the serve, head and tail programs of the
+   Before phase 1's kernel build, a background build (``chip_smoke.py
+   --precompile``, ``EARLY_GROUPS``) compiles phase 3's llama programs into
+   that cache beside phases 1 and 2. From phase 3 on, two more
+   (``PRECOMPILE_GROUPS``) compile the serve, head and tail programs of the
    deploys of phases 3g, 3c and 3d from their shapes into that cache
    (``repro_torch.core.deploy.precompile``), beside phases 3-3f; those
    deploys then read the packages back (their lines log the cache lookups)
@@ -185,7 +189,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    alone, every scan and flash call of a kernel-path prefill against its
    plain version, and the prefill-logit gate. Each path logs its peak device
    memory, and the free disk and host memory before its deploy.
-3t. Training on one card, after jamba's deployment is freed: full-width
+3t. Training on one card, after phase 2: full-width
    llama3.2-3b cut to 2 of 28 layers (595,344,384 parameters, bf16, the
    config's own remat ``full``). A gradient gate first: one micro-batch
    [4, 512] of ``Model.loss`` and its gradients
@@ -215,6 +219,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    in-memory weights (the promotion of a just-trained model); and
    xlstm-1.3b's gradient gate at full width, 1 of 6 periods (2 x 7 mLSTM
    launches). Device memory comes back within 64 MiB of before the phase.
+   Between the resumed run and the int8 moments, phase 3r's card check
+   (b): the same cell (B=8, [4, 512] micro-batches, f32 moments, remat
+   ``full``) dry-run on fake tensors on one device
+   (``repro_torch.launch.dryrun``), then one more step of the resumed
+   trainer on the card under the dry run's counter: the FLOPs must be
+   equal, the collective bytes 0 on both, and the predicted peak (the
+   arguments plus the trace's peak of live allocations) within 1.25x of
+   ``max_memory_allocated`` over the step (with the arguments) either way;
+   the counted FLOPs over the median step give the achieved TFLOP/s. The
+   step's flash launches are the ``dryrun_anchor`` path.
 3m. The multi-device layer (``repro_torch.dist``), after phase 3t: four
    ``chip_smoke.py --mesh-rank R`` processes on the one card in a gloo world
    over a ``FileStore`` (DTensor's collectives of CUDA tensors staged
@@ -238,9 +252,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    outlives 480 s or leaves no result fails the run; the ranks' peak device
    memory, summed, stays under 70 GB. Each rank logs per cell its wall,
    peak memory, launches and collective calls and bytes.
+3r. The dry run, in a ``chip_smoke.py --dryrun`` process started after
+   phase 3g and collected after phase 3d (the traces are host work):
+   ``torch.distributed``'s fake process group of 512 ranks in that one
+   process (nothing sent) and three cells traced on fake tensors at
+   published widths: llama3.2-3b
+   ``train_4k`` on the (16, 16) mesh with its probes, qwen2.5-32b
+   ``decode_32k`` under ``serve_tp``, and kimi-k2 ``train_4k`` on the
+   (2, 16, 16) mesh without probes, cut to 2 of its 61 layers. One line
+   per cell: its per-device FLOPs, bytes accessed, collectives by kind and
+   bytes per device against the card's memory. A cell that does not trace,
+   counts no FLOPs or (training) no collective fails the run; the process
+   group is torn down after.
 4. A ``kernels`` JSON line (launches per path, phase 3t's among them; flash
    and decode also at the 16-row bucket's shape and phase 3g's timed
-   shapes), and the last line ``{"ok": true, "device": {...}}``.
+   shapes); then Inductor's compile workers are shut down and every
+   process the run left (its descendants, adopted orphans among them: the
+   script is a child subreaper, and the members of the sessions it
+   started) is killed and reaped, ``processes left: 0`` is logged (a
+   process still there fails the run, named by pid and command line; a
+   failing run is reaped the same way), and the last line
+   ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the repository around it (it imports
 ``src/repro_torch``); without either it exits non-zero before printing a
@@ -248,15 +280,19 @@ result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -321,6 +357,124 @@ FAMILY_TIMED = {id(WHISPER_ENC_FLASH): "whisper's encoder",
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# ---------------------------------------------------------- process hygiene
+#
+# The run starts processes of its own (the background builds, the mesh
+# ranks, each in a session of its own) and Inductor starts compile workers
+# for the in-process compiles; a grandchild whose parent died would be
+# reparented away from the script. The script is therefore a child
+# subreaper: orphans of its descendants come back to it. Before its last
+# line, and on the way out of a failing run, it shuts Inductor's compile
+# workers down, kills and reaps every process left, and checks that none is.
+
+PR_SET_CHILD_SUBREAPER = 36
+SESSIONS = set()                    # sessions the run started (their leaders' pids)
+
+
+def become_subreaper() -> None:
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER) failed")
+
+
+def child_pids(pid: int) -> list:
+    """``pid``'s children, from ``/proc/<pid>/task/*/children``."""
+    out = []
+    for path in Path(f"/proc/{pid}/task").glob("*/children"):
+        with contextlib.suppress(OSError):
+            out += [int(c) for c in path.read_text().split()]
+    return out
+
+
+def descendants(pid: int) -> set:
+    seen, todo = set(), [pid]
+    while todo:
+        for child in child_pids(todo.pop()):
+            if child not in seen:
+                seen.add(child)
+                todo.append(child)
+    return seen
+
+
+def session_members(sessions) -> set:
+    """Every process whose session (``/proc/*/stat`` field 6) is one of
+    ``sessions``."""
+    out = set()
+    for path in Path("/proc").iterdir():
+        if not path.name.isdigit():
+            continue
+        with contextlib.suppress(OSError, ValueError, IndexError):
+            fields = (path / "stat").read_text().rsplit(")", 1)[1].split()
+            if int(fields[3]) in sessions:
+                out.add(int(path.name))
+    return out
+
+
+def processes_left(sessions=SESSIONS) -> dict:
+    """{pid: command line} of the script's descendants and of every process
+    in a session it started (itself excluded)."""
+    me = os.getpid()
+    out = {}
+    for pid in sorted((descendants(me) | session_members(sessions)) - {me}):
+        with contextlib.suppress(OSError):
+            out[pid] = Path(f"/proc/{pid}/cmdline").read_bytes().replace(
+                b"\0", b" ").decode(errors="replace").strip() or "(exited, not reaped)"
+    return out
+
+
+def reap_children(sessions=SESSIONS, wait_s: float = 10.0) -> None:
+    """Shut Inductor's compile workers down, then kill every process left
+    (descendants and the members of the run's sessions) and reap every
+    child, adopted orphans included, until none is left or ``wait_s``
+    passes."""
+    inductor = sys.modules.get("torch._inductor.async_compile")
+    if inductor is not None and hasattr(inductor, "shutdown_compile_workers"):
+        with contextlib.suppress(Exception):
+            inductor.shutdown_compile_workers()
+    deadline = time.monotonic() + wait_s
+    while True:
+        left = processes_left(sessions)
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.kill(pid, signal.SIGKILL)
+        while True:
+            try:
+                pid, _ = os.waitpid(-1, os.WNOHANG)
+            except ChildProcessError:
+                break
+            if pid == 0:
+                break
+        if not left or time.monotonic() > deadline:
+            return
+        time.sleep(0.05)
+
+
+def leave_nothing_running(run) -> int:
+    """Run ``run()`` (-> an exit code, or the last line's object) as a child
+    subreaper; reap what it left, on success and on failure; on success
+    raise if any process is left (naming each), else log ``processes left:
+    0`` and print the last line."""
+    become_subreaper()
+    try:
+        result = run()
+    except BaseException:
+        reap_children()
+        left = processes_left()
+        log(f"processes left after the failure: {len(left)} {left}")
+        raise
+    reap_children()
+    left = processes_left()
+    if left:
+        raise RuntimeError("processes left running: " + "; ".join(
+            f"pid {pid}: {cmd}" for pid, cmd in left.items()))
+    log("processes left: 0")
+    if isinstance(result, dict):
+        print(json.dumps(result), flush=True)
+        return 0
+    return result
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -458,8 +612,6 @@ def inductor_toolchain(torch, work) -> str:
     ``PATH``; the first that links is given to Inductor
     (``torch._inductor.config.cpp.cxx``, and ``CXX`` for its workers). None:
     raise. Returns the log line."""
-    import os
-
     import triton
     from torch._inductor import config as inductor_config
     from torch._inductor import cpp_builder
@@ -2433,17 +2585,90 @@ def int8_on_card(torch, sub) -> None:
                              f"scale {ds}")
 
 
+def median_step(trainer) -> float:
+    """The median step of ``trainer``'s run after its first (NaN for one)."""
+    after = sorted(h["dt"] for h in trainer.history[1:])
+    return after[len(after) // 2] if after else float("nan")
+
+
 def run_line(label, trainer) -> str:
-    dts = [h["dt"] for h in trainer.history]
     tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
     steps = ", ".join(f"{h['step']}: loss {h['loss']:.5f} {h['dt']:.3f} s "
                       f"{tokens / h['dt']:.0f} tok/s" for h in trainer.history)
-    after = sorted(dts[1:])
-    median = after[len(after) // 2] if after else float("nan")
-    return f"phase 3t {label}: {steps} | median step after the first {median:.4f} s"
+    return (f"phase 3t {label}: {steps} | median step after the first "
+            f"{median_step(trainer):.4f} s")
 
 
-def train_path(torch, F, work) -> dict:
+
+def dryrun_anchor(torch, trainer, state, step_s: float, smi: str, work) -> dict:
+    """Phase 3r (b), the card check: phase 3t's cell dry-run on fake tensors
+    on one device (``run_cell(..., single_device=True)``), then one extra
+    step of phase 3t's trainer on the card under the same counter. FLOPs
+    must equal, collective bytes be 0 on both, and the predicted peak be
+    within ``ANCHOR_PEAK_RATIO`` of the card's (the arguments plus
+    ``max_memory_allocated`` above what the step started with). Logs the
+    achieved rate, the counted FLOPs over phase 3t's median step. Returns
+    the step's kernel launches."""
+    from repro_torch import pytree
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    shape = ShapeSpec(f"train_{TRAIN['seq_len']}", TRAIN["seq_len"], TRAIN["global_batch"],
+                      "train")
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(TRAIN_ARCH, shape.name, shape=shape, single_device=True,
+                          grad_accum=TRAIN["grad_accum"], opt_dtype="float32", probes=False,
+                          out_dir=str(work / "dryrun"), device="cuda")
+    t_fake = time.perf_counter() - t0
+    params, opt_state = state["params"], state["opt_state"]
+    batch = trainer._batch(TRAIN["steps"])
+    args = pytree.leaves(params) + pytree.leaves(opt_state) + list(batch.values())
+    arg_bytes = sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                     for t in args}.values())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counter = dryrun.CostCounter()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with counter:
+        out = trainer._step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base + arg_bytes
+    del out, batch, args
+    coll = counter.collectives_record()
+    ratio = rec["bytes_per_device"] / peak
+    rate = counter.flops / step_s
+    log(f"phase 3r card check, {TRAIN_ARCH} {shape.name} (B={TRAIN['global_batch']}, "
+        f"grad_accum {TRAIN['grad_accum']}, f32 moments, remat {rec['remat']}): fake trace "
+        f"{t_fake:.2f} s ({rec['ops']} local ops, {rec['vjp_replays']} VJPs replayed); the card's "
+        f"step under the counter {t_step:.2f} s | FLOPs fake {rec['flops_per_device']:.0f}, card "
+        f"{counter.flops} (equal {rec['flops_per_device'] == counter.flops}) | collective bytes "
+        f"fake {rec['collectives']['total']}, card {coll['total']} | arguments fake "
+        f"{rec['memory']['argument_size_in_bytes']} B, card {arg_bytes} B | peak fake "
+        f"{rec['bytes_per_device']} B (temp {rec['memory']['temp_size_in_bytes']}), card {peak} B "
+        f"(max_memory_allocated), ratio {ratio:.4f} (bound {ANCHOR_PEAK_RATIO}) | launches "
+        f"{launches}")
+    log(f"phase 3r achieved rate: {counter.flops:.4g} FLOPs a step over phase 3t's median step "
+        f"{step_s:.4f} s = {rate / 1e12:.2f} TFLOP/s, {100 * rate / BF16_FLOP_PER_S:.2f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16 | {smi}")
+    problems = []
+    if rec["flops_per_device"] != counter.flops:
+        problems.append(f"FLOPs fake {rec['flops_per_device']} != card {counter.flops}")
+    if rec["collectives"]["total"] != 0 or coll["total"] != 0:
+        problems.append("collective bytes on one device")
+    if not 1 / ANCHOR_PEAK_RATIO <= ratio <= ANCHOR_PEAK_RATIO:
+        problems.append(f"peak ratio {ratio:.4f}")
+    if launches["flash_attention"] == 0:
+        problems.append("no flash launch")
+    if problems:
+        raise AssertionError("phase 3r card check: " + "; ".join(problems))
+    return launches
+
+
+def train_path(torch, F, work, smi: str) -> dict:
     """Phase 3t: training on one card through the port's ``Trainer``: the
     llama gradient gate, an uninterrupted run, a run stopped at a checkpoint
     and resumed in a fresh ``Trainer``, the int8 moments on the card against
@@ -2540,6 +2765,10 @@ def train_path(torch, F, work) -> dict:
         raise AssertionError("phase 3t: " + "; ".join(problems))
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     log(f"phase 3t checkpoint directory deleted: {memory_line(torch, work)}")
+
+    # ---- phase 3r (b): this cell's dry run against one more step on the card
+    launches["dryrun_anchor"] = dryrun_anchor(torch, resumed, out, median_step(full), smi,
+                                              work)
 
     # ---- the int8 moments on the card against the same updates on the CPU
     params = out["params"]
@@ -3005,6 +3234,7 @@ def mesh_path(torch, work: Path, train_ref_losses, train_ref_params=None,
         procs.append((subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
                                         "--mesh-rank", str(r), str(work)], stdout=out,
                                        stderr=subprocess.STDOUT, start_new_session=True), out))
+        SESSIONS.add(procs[-1][0].pid)
     failed = []
     try:
         for r, (proc, _) in enumerate(procs):
@@ -3015,8 +3245,6 @@ def mesh_path(torch, work: Path, train_ref_losses, train_ref_params=None,
             except subprocess.TimeoutExpired:
                 failed.append(f"rank {r} ran past {MESH_TIMEOUT_S} s")
     finally:
-        import os
-        import signal
         for proc, out in procs:
             with contextlib.suppress(ProcessLookupError):
                 os.killpg(proc.pid, signal.SIGKILL)
@@ -3110,6 +3338,114 @@ def mesh_path(torch, work: Path, train_ref_losses, train_ref_params=None,
     return launches
 
 
+# -------------------------------------------------------------------- phase 3r
+
+# (arch, shape, multi-pod, probes): the dry run's cells on a 512-rank fake
+# world at published widths: llama and qwen2.5-32b at their full depths,
+# kimi-k2 cut to its first two layers (the dense one and one MoE layer with
+# all 384 experts) for the phase's 60 s: its 61 layers took 65.9 s alone
+DRYRUN_KIMI_LAYERS = 2
+DRYRUN_KIMI_ARCH = f"kimi-k2-1t-a32b:{DRYRUN_KIMI_LAYERS}L"
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k", False, True),
+                ("qwen2.5-32b", "decode_32k", False, False),
+                (DRYRUN_KIMI_ARCH, "train_4k", True, False))
+DRYRUN_WORLD = 512
+ANCHOR_PEAK_RATIO = 1.25            # the card check's bound on predicted / measured peak
+
+
+def dryrun_path(torch, work) -> None:
+    """Phase 3r (a): trace ``DRYRUN_CELLS`` on a fake world of
+    ``DRYRUN_WORLD`` ranks in this process (``repro_torch.launch.dryrun``;
+    the world starts no process and sends nothing), one line per cell with its
+    per-device counts and its bytes per device against the card's memory;
+    the process group is torn down after. A cell that does not trace, counts
+    no FLOPs, or (training) no collective fails the run."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, register
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_world
+    register(DRYRUN_KIMI_ARCH)(lambda: dataclasses.replace(get_config("kimi-k2-1t-a32b"),
+                                                           n_layers=DRYRUN_KIMI_LAYERS))
+    init_fake_world(DRYRUN_WORLD)
+    try:
+        for arch, shape, multi_pod, probes in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod, probes=probes,
+                                  out_dir=str(work), device="cuda")
+            wall = time.perf_counter() - t0
+            mem, coll = rec["memory"], rec["collectives"]
+            ndev = rec["n_devices"]
+            probe = ""
+            if "costs_per_device" in rec:
+                probe = (f" | probes ({rec['probe_s']:.1f} s): FLOPs/device "
+                         f"{rec['costs_per_device']['flops']:.4g}, collective bytes "
+                         f"{rec['costs_per_device']['collectives']['coll_total']:.4g}")
+            log(f"phase 3r {arch} {shape} on {rec['mesh']} of a {DRYRUN_WORLD}-rank fake world "
+                f"({rec['rules']}, grad_accum {rec['grad_accum']}, {rec['opt_dtype']} moments, "
+                f"remat {rec['remat']}): {wall:.1f} s (trace {rec['lower_s']:.1f} s, "
+                f"{rec['ops']} local ops, {rec['vjp_replays']} VJPs and {rec['scan_replays']} "
+                f"micro-batches replayed) | FLOPs/device "
+                f"{rec['flops_per_device']:.4g} (analytic {rec['analytic_flops_global']['executed'] / ndev:.4g}) "
+                f"| bytes accessed/device {rec['bytes_accessed_per_device']:.4g} | collectives "
+                f"{coll['count']} calls, {coll['total']} B (" + ", ".join(
+                    f"{k} {coll[k]}" for k in dryrun.COLLECTIVES) + f"){probe} | per device: "
+                f"arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB + peak temp "
+                f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB = {rec['bytes_per_device'] / 1e9:.3f} "
+                f"GB of the card's {rec['device_memory_bytes'] / 1e9:.2f} GB "
+                f"(fits {rec['fits_device_memory']})")
+            if rec["flops_per_device"] <= 0:
+                raise AssertionError(f"phase 3r {arch} {shape}: no FLOPs counted")
+            if shape.startswith("train") and coll["count"] == 0:
+                raise AssertionError(f"phase 3r {arch} {shape}: no collective")
+    finally:
+        dist.destroy_process_group()
+
+DRYRUN_TIMEOUT_S = 600              # how long the end of the run waits for phase 3r
+
+
+def start_dryrun(work):
+    """Start phase 3r (a) as ``chip_smoke.py --dryrun WORK``, in a session
+    of its own, its output in ``WORK.log``: the traces are host work, and
+    run beside phases 3c and 3d. Returns it in ``start_builds``' form."""
+    work.mkdir(parents=True, exist_ok=True)
+    path = work.with_suffix(".log")
+    with open(path, "w") as out:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun",
+                                 str(work)], stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    SESSIONS.add(proc.pid)
+    log(f"phase 3r started (pid {proc.pid})")
+    return ("r", ("dryrun",), proc, path, time.perf_counter())
+
+
+def finish_dryrun(dry, t_run: float) -> None:
+    """Wait for phase 3r, log its lines, and raise if it failed."""
+    _, _, proc, path, t0 = dry
+    rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    text = path.read_text()
+    for line in text.splitlines():
+        if line.startswith("phase 3r"):
+            log(line)
+    log(f"phase 3r: exit {rc}, {t0 - t_run:.1f} s into the run to "
+        f"{time.perf_counter() - t_run:.1f} s (collected)")
+    if rc != 0:
+        raise RuntimeError(f"phase 3r exited {rc}:\n" + text[-4000:])
+
+
+def dryrun_main(work: str) -> int:
+    """``chip_smoke.py --dryrun WORK``: phase 3r (a), records under WORK."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    t0 = time.perf_counter()
+    dryrun_path(torch, Path(work))
+    log(f"phase 3r: the three cells in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 # ------------------------------------------------- the background build
 
 # The deploys of phases 3g, 3c and 3d compile their serve, head and tail
@@ -3118,43 +3454,56 @@ def mesh_path(torch, work: Path, train_ref_losses, train_ref_params=None,
 # packages back from the shared compiled-package cache (or waits on a
 # package's lock while its build is still compiling it).
 PRECOMPILE_GROUPS = (("kimi-k2-1t-a32b:2L16E", JAMBA_ARCH), ("qwen2-vl-2b:2L", XLSTM_ARCH))
+# phase 3's llama programs compile in a build of their own, started before
+# phase 1's kernel build, so that their compile runs beside phases 1 and 2;
+# phase 3's deploy reads them back (or waits on their locks)
+EARLY_GROUPS = ((LLAMA_ARCH,),)
 BUILD_TIMEOUT_S = 600               # how long the end of the run waits for a build
+
+
+def register_llama() -> None:
+    from repro_torch.configs import get_config, register
+    for arch, layers in ((LLAMA_ARCH, LLAMA_LAYERS), (COALESCE_ARCH, COALESCE_LAYERS)):
+        register(arch)(lambda layers=layers: dataclasses.replace(get_config("llama3.2-3b"),
+                                                                 n_layers=layers))
 
 
 def deployed_specs() -> dict:
     """The specs the phases after 3f deploy, by arch (their configs are
     registered first)."""
     from repro_torch.core.artifact import FunctionSpec
+    register_llama()
     register_families()
     register_xlstm()
     register_jamba()
     return {**{arch: FunctionSpec(**dict(SPEC, arch=arch, decode_steps=FAMILY_DEPLOY_STEPS))
                for arch in FAMILY_DEPLOYED},
+            LLAMA_ARCH: FunctionSpec(**SPEC),
             XLSTM_ARCH: FunctionSpec(**XLSTM_SPEC), JAMBA_ARCH: FunctionSpec(**JAMBA_SPEC)}
 
 
-def start_builds(work) -> list:
+def start_builds(work, groups, first: int = 0) -> list:
     """Start one ``chip_smoke.py --precompile`` process per group of
-    ``PRECOMPILE_GROUPS``, each in a session of its own (so its compile
-    workers stop with it), its output in a file under ``work``; they inherit
-    the Inductor cache directory. Returns [(group, process, log path, start)]."""
+    ``groups`` (numbered from ``first``), each in a session of its own (so
+    its compile workers stop with it), its output in a file under ``work``;
+    they inherit the Inductor cache directory. Returns [(group, process, log
+    path, start)]."""
     builds = []
-    for i, group in enumerate(PRECOMPILE_GROUPS):
+    for i, group in enumerate(groups, start=first):
         path = work / f"build{i}.log"
         with open(path, "w") as out:
             proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
                                      "--precompile", *group], stdout=out,
                                     stderr=subprocess.STDOUT, start_new_session=True)
-        builds.append((group, proc, path, time.perf_counter()))
+        SESSIONS.add(proc.pid)
+        builds.append((i, group, proc, path, time.perf_counter()))
         log(f"background build {i}: {', '.join(group)} (pid {proc.pid})")
     return builds
 
 
 def stop_builds(builds) -> None:
     """Kill every process of each build's session that still runs."""
-    import os
-    import signal
-    for _, proc, _, _ in builds:
+    for _, _, proc, _, _ in builds:
         with contextlib.suppress(ProcessLookupError):
             os.killpg(proc.pid, signal.SIGKILL)
         proc.wait()
@@ -3163,7 +3512,7 @@ def stop_builds(builds) -> None:
 def finish_builds(builds, t_run: float) -> None:
     """Wait for the builds, log each spec's trace and compile seconds, and
     raise if a build failed."""
-    for i, (group, proc, path, t0) in enumerate(builds):
+    for i, group, proc, path, t0 in builds:
         rc = proc.wait(timeout=BUILD_TIMEOUT_S)
         lines = [json.loads(line) for line in path.read_text().splitlines()
                  if line.startswith('{"precompiled"')]
@@ -3201,13 +3550,15 @@ def precompile_main(names) -> int:
                    for k, v in compile_cache.counters().items() if v - before.get(k, 0)}
         print(json.dumps({"precompiled": name, "t_s": time.perf_counter() - t0,
                           "lookups": lookups, **times}), flush=True)
+    reap_children(set())                # this build's compile workers
     return 0
 
 
 # ------------------------------------------------------------------------ main
 
-def main(mesh_only=False) -> int:
-    """The whole run. ``mesh_only`` (``--mesh-only [CELL...]``, for work on
+def main(mesh_only=False):
+    """The whole run -> the last line's object (or an exit code: 1 without a
+    card). ``mesh_only`` (``--mesh-only [CELL...]``, for work on
     phase 3m): phase 1, phase 2's decode rows, phase 3t's uninterrupted run
     as the reference and phase 3m (those cells), then exit with no result
     line."""
@@ -3217,7 +3568,7 @@ def main(mesh_only=False) -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
-    from repro_torch.configs import get_config, register
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _cuda, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -3233,6 +3584,17 @@ def main(mesh_only=False) -> int:
 
     def phase_done(label: str) -> None:
         log(f"{label} done: {time.perf_counter() - t_run:.1f} s into the run")
+
+    builds = []
+    if not mesh_only:
+        from repro_torch.core import compile_cache
+        work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+        atexit.register(shutil.rmtree, work, ignore_errors=True)
+        # one compile cache for every deploy of the run (and cold_jit_cached)
+        inductor_cache = work / "inductor"
+        compile_cache.enable_inductor_disk_cache(inductor_cache)
+        log(f"Inductor cache directory {inductor_cache}")
+        builds = start_builds(work, EARLY_GROUPS)
 
     # ---- phase 1: device and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3259,6 +3621,14 @@ def main(mesh_only=False) -> int:
         log(f"ptxas: {line}")
     with tempfile.TemporaryDirectory() as probe:
         log(inductor_toolchain(torch, Path(probe)))
+    if not mesh_only:
+        # Inductor checks, once per process, which vector ISAs the host
+        # compiler builds (a test build per ISA, tens of seconds) at its first
+        # compile or package load: done beside phase 2, phase 3's first load
+        # of the early build's package does not wait for it
+        from torch._inductor import cpu_vec_isa
+        threading.Thread(target=cpu_vec_isa.valid_vec_isa_list, name="vec-isa",
+                         daemon=True).start()
 
     # ---- phase 2: kernels vs plain
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3440,9 +3810,7 @@ def main(mesh_only=False) -> int:
                     k: r[k] for k in row_keys}
 
     phase_done("phase 2")
-    for arch, layers in ((LLAMA_ARCH, LLAMA_LAYERS), (COALESCE_ARCH, COALESCE_LAYERS)):
-        register(arch)(lambda layers=layers: dataclasses.replace(get_config("llama3.2-3b"),
-                                                                 n_layers=layers))
+    register_llama()
     register_train()
     if mesh_only:
         from repro_torch.optim import AdamWConfig
@@ -3464,15 +3832,24 @@ def main(mesh_only=False) -> int:
         phase_done("phase 3m")
         return 0
     specs = deployed_specs()
-    from repro_torch.core import compile_cache
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    # one compile cache for every deploy of the run (and cold_jit_cached)
-    inductor_cache = work / "inductor"
-    compile_cache.enable_inductor_disk_cache(inductor_cache)
-    log(f"Inductor cache directory {inductor_cache}")
-    builds = []
+    dry = None
     try:
-        builds = start_builds(work)
+        # ---- phases 3t and 3m first: eager work on the card, beside the early
+        # build compiling phase 3's programs
+        # ---- phase 3t: training on the card, llama at 2 of 28 layers, then xlstm
+        launches_3t = train_path(torch, F, work / "train", smi)
+        phase_done("phase 3t")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- phase 3m: the multi-device layer, 4 ranks on the one card
+        launches_3m = mesh_path(torch, work / "mesh", REFERENCE["train_losses"],
+                                REFERENCE.pop("params"))
+        phase_done("phase 3m")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        builds += start_builds(work, PRECOMPILE_GROUPS, first=len(EARLY_GROUPS))
         # ---- phase 3: the llama serve path, full width, through the Gateway
         gw, dep, launches, first_tokens = gateway_path(torch, SPEC, work / "llama")
         phase_done("phase 3")
@@ -3498,6 +3875,8 @@ def main(mesh_only=False) -> int:
         launches_3g = family_paths(torch, work / "families", specs)
         phase_done("phase 3g")
         shutil.rmtree(work / "families", ignore_errors=True)
+        # ---- phase 3r (a) in a process of its own, beside phases 3c and 3d
+        dry = start_dryrun(work / "dryrun")
 
         # ---- phase 3c: the xlstm serve path, full width, 1 of 6 periods
         _, launches_3c = serve_path(
@@ -3520,18 +3899,13 @@ def main(mesh_only=False) -> int:
         torch.cuda.empty_cache()
         shutil.rmtree(work / "jamba", ignore_errors=True)
 
-        # ---- phase 3t: training on the card, llama at 2 of 28 layers, then xlstm
-        launches_3t = train_path(torch, F, work / "train")
-        phase_done("phase 3t")
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # ---- phase 3m: the multi-device layer, 4 ranks on the one card
-        launches_3m = mesh_path(torch, work / "mesh", REFERENCE["train_losses"],
-                                REFERENCE.pop("params"))
-        phase_done("phase 3m")
+        # ---- phase 3r (a): the dry run of three cells on a 512-rank fake world
+        finish_dryrun(dry, t_run)
+        phase_done("phase 3r")
     finally:
         stop_builds(builds)
+        if dry is not None:
+            stop_builds([dry])
         compile_cache.disable_inductor_disk_cache()
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3572,10 +3946,9 @@ def main(mesh_only=False) -> int:
         if name in family_rows:
             kernels[-1]["at_family_shapes"] = family_rows[name]
     log(smi)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+    print(json.dumps({"kernels": kernels}), flush=True)
+    return {"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                   "count": torch.cuda.device_count()}}
 
 
 if __name__ == "__main__":
@@ -3583,6 +3956,9 @@ if __name__ == "__main__":
         sys.exit(precompile_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--dryrun"]:
+        sys.exit(dryrun_main(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-only"]:
-        sys.exit(main(mesh_only=tuple(sys.argv[2:]) or MESH_CELLS))
-    sys.exit(main())
+        sys.exit(leave_nothing_running(
+            lambda: main(mesh_only=tuple(sys.argv[2:]) or MESH_CELLS)))
+    sys.exit(leave_nothing_running(main))

@@ -3,11 +3,20 @@ JAX package's ten architectures: the uniform stack (dense, MoE and vision)
 of ``llama3.2-3b``, ``olmo-1b``, ``qwen2.5-32b``, ``starcoder2-3b``,
 ``kimi-k2-1t-a32b``, ``arctic-480b`` and ``qwen2-vl-2b``, the mLSTM + sLSTM
 stack of ``xlstm-1.3b``, the Mamba + attention + MoE stack of
-``jamba-1.5-large-398b`` and the encoder-decoder of ``whisper-medium``."""
+``jamba-1.5-large-398b`` and the encoder-decoder of ``whisper-medium``, and
+exports the dry run's shape suite (``SHAPES``)."""
 from repro_torch.configs.base import (
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES,
+    SUBQUADRATIC_FAMILIES,
+    TRAIN_4K,
     ArchConfig,
     MoEConfig,
+    ShapeSpec,
     SSMConfig,
+    all_cells,
     get_config,
     list_archs,
     register,

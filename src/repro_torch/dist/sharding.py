@@ -195,20 +195,39 @@ class _Context(threading.local):
 _ctx = _Context()
 
 
+# DTensor's implicit replication is one flag per process, and leaving its
+# context clears it: only the outermost of nested (or concurrent) contexts
+# sets and clears it
+_REPLICATION = {"depth": 0, "lock": threading.Lock()}
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    from torch.distributed.tensor.experimental import implicit_replication
+    with _REPLICATION["lock"]:
+        _REPLICATION["depth"] += 1
+        outermost = _REPLICATION["depth"] == 1
+    try:
+        with implicit_replication() if outermost else contextlib.nullcontext():
+            yield
+    finally:
+        with _REPLICATION["lock"]:
+            _REPLICATION["depth"] -= 1
+
+
 @contextlib.contextmanager
 def use_rules(rules: Optional[Rules], mesh):
     """Activate (rules, mesh) for the dynamic extent, so ``constrain`` calls
     inside model code resolve against them. With a mesh, a plain tensor that
     meets a DTensor in an op counts as replicated (DTensor's implicit
     replication): position ids, masks and rotary tables are made where they
-    are used, as under ``jit``."""
+    are used, as under ``jit``. Contexts nest."""
     _ctx.stack.append((rules, mesh))
     try:
         if mesh is None:
             yield
         else:
-            from torch.distributed.tensor.experimental import implicit_replication
-            with implicit_replication():
+            with _implicit_replication():
                 yield
     finally:
         _ctx.stack.pop()
@@ -237,6 +256,19 @@ def replicated(x: torch.Tensor, mesh):
     return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
+def local_shape_and_offset(shape: Sequence[int], mesh, target: Sequence) -> tuple:
+    """(local shape, global offset) of this rank's shard of a tensor of
+    ``shape`` laid out as ``target`` on ``mesh``. DTensor's helper computes
+    the offsets with small index tensors (torch 2.13); they are made with
+    every dispatch mode off, so that under the dry run's fake tensors they
+    stay real and the counter does not count them."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return compute_local_shape_and_global_offset(tuple(shape), mesh, list(target))
+
+
 def pad_sharded(x, shape: Sequence[int], target: tuple, mesh):
     """``x`` (a DTensor, or a tensor every rank holds whole) zero-padded at
     the end of each dim to ``shape`` and laid out as ``target``, with no
@@ -244,13 +276,12 @@ def pad_sharded(x, shape: Sequence[int], target: tuple, mesh):
     rule for a sharded dim): each rank builds its own shard of the result
     and copies in the part of ``x`` that falls in it."""
     from torch.distributed.tensor import DTensor, Replicate
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     shape = tuple(int(c) for c in shape)
     grow = [d for d in range(len(shape)) if x.shape[d] != shape[d]]
     src_pl = [Replicate() if p.is_shard() and p.dim in grow else p for p in target]
     src = replicated(x, mesh).redistribute(mesh, src_pl).to_local()
-    local_shape, offset = compute_local_shape_and_global_offset(shape, mesh, list(target))
+    local_shape, offset = local_shape_and_offset(shape, mesh, target)
     out = src.new_zeros(local_shape)
     dst_idx, src_idx = [], []
     for d in range(len(shape)):
@@ -264,6 +295,37 @@ def pad_sharded(x, shape: Sequence[int], target: tuple, mesh):
     out[tuple(dst_idx)] = src[tuple(src_idx)]
     return DTensor.from_local(out, mesh, list(target), run_check=False, shape=shape,
                               stride=torch.empty(shape, device="meta").stride())
+
+
+def unflatten_last(x: torch.Tensor, *dims: int) -> torch.Tensor:
+    """``x`` [..., prod(dims)] reshaped to [..., *dims] (a head split). A
+    DTensor sharded on its last dim over mesh dims whose size the first new
+    dim does not divide (24 heads over 16 ranks) is gathered along that dim
+    first: DTensor refuses to split such a dim, where XLA reshards it."""
+    shape = (*x.shape[:-1], *dims)
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        last, ways = x.dim() - 1, 1
+        for p, size in zip(x.placements, x.device_mesh.shape):
+            if p.is_shard(last):
+                ways *= size
+        if dims[0] % ways:
+            x = x.redistribute(x.device_mesh, [Replicate() if p.is_shard(last) else p
+                                               for p in x.placements])
+    return x.reshape(shape)
+
+
+def flatten_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., a, b] reshaped to [..., a * b] (heads merged). On a
+    DTensor the result is passed through a redistribution to its own
+    placements, whose backward lays the incoming gradient out as the result
+    is laid out: a gradient sharded along the merged dim in a way the heads
+    do not divide (the output projection's, 24 heads over 16 ranks) could
+    not be split back into heads."""
+    y = x.reshape(*x.shape[:-2], -1)
+    if is_dtensor(y):
+        y = y.redistribute(y.device_mesh, y.placements)
+    return y
 
 
 def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:

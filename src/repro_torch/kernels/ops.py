@@ -57,7 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.dist.sharding import is_dtensor
+from repro_torch.dist.sharding import is_dtensor, replicated
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mlstm as mk
@@ -266,6 +266,15 @@ def _(gates, r, b_in, c, n, h, m):
 
 # ------------------------------------------------------------------ autograd
 
+# None, or ``runner(name, vjp, saved, present, args, grads)`` that the
+# backwards below call instead of ``vjp(saved, present, args, grads)``: the
+# dry run (``repro_torch.launch.dryrun``) replays the counts of a VJP it has
+# traced at the same shapes instead of tracing it again. A module global,
+# not thread-local: the autograd engine runs a CUDA backward on a thread of
+# its own.
+VJP_RUNNER = None
+
+
 def _vjp_of(plain, n_tensors: int, name: str):
     """A ``register_autograd`` backward for a custom op whose first
     ``n_tensors`` arguments are tensors (or None): recompute ``plain`` on
@@ -300,28 +309,44 @@ def _vjp_of(plain, n_tensors: int, name: str):
                                            [g for _, g in pairs], allow_unused=True))
         return [next(got) if t is not None and t.requires_grad else None for t in leaves]
 
+    def run_vjp(saved, present, args, grads):
+        if VJP_RUNNER is None:
+            return local_vjp(saved, present, args, grads)
+        return VJP_RUNNER(name, local_vjp, saved, present, args, grads)
+
     def backward(ctx, *grads):
         if ctx.placements is None:
-            dx = local_vjp(ctx.saved_tensors, ctx.present, ctx.args, grads)
+            dx = run_vjp(ctx.saved_tensors, ctx.present, ctx.args, grads)
             return (*dx, *[None] * len(ctx.args))
         from torch.distributed.tensor import DTensor, Partial
 
+        from torch.distributed.tensor import Replicate
+
         in_pl, grad_pl = _input_placements(name, ctx.placements)
         mesh = ctx.mesh
-        saved = [t.redistribute(mesh, pl).to_local() if here else None
-                 for t, pl, here in zip(ctx.saved_tensors, in_pl, ctx.present)]
-        local_g = [None if g is None else g.redistribute(mesh, ctx.placements).to_local()
+        # an input that is a plain tensor (a zero initial state) counts as
+        # held whole by every rank, as DTensor's implicit replication took it
+        saved_in = ctx.saved_tensors             # unpacked once (remat allows no second)
+        plain = [here and not is_dtensor(t) for t, here in zip(saved_in, ctx.present)]
+        saved = [replicated(t, mesh).redistribute(mesh, pl).to_local() if here else None
+                 for t, pl, here in zip(saved_in, in_pl, ctx.present)]
+        # a gradient that is not a DTensor is the zeros autograd made for an
+        # output the loss does not reach: no contribution
+        local_g = [g.redistribute(mesh, ctx.placements).to_local() if is_dtensor(g) else None
                    for g in grads]
-        dx = local_vjp(saved, ctx.present, ctx.args, local_g)
+        dx = run_vjp(saved, ctx.present, ctx.args, local_g)
         out = []
-        for d, pl, gpl in zip(dx, in_pl, grad_pl):
-            if d is None:
+        for i, (d, pl, gpl) in enumerate(zip(dx, in_pl, grad_pl)):
+            if d is None or (plain[i] and not ctx.needs_input_grad[i]):
                 out.append(None)
                 continue
             d = DTensor.from_local(d.contiguous(), mesh,
                                    [Partial() if partial else p for p, partial in zip(pl, gpl)],
                                    run_check=False)
-            out.append(d.redistribute(mesh, pl))
+            if plain[i]:                # a plain input's gradient: whole, plain
+                out.append(d.redistribute(mesh, [Replicate()] * mesh.ndim).to_local())
+            else:
+                out.append(d.redistribute(mesh, pl))
         return (*out, *[None] * len(ctx.args))
 
     return backward, setup_context

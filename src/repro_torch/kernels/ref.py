@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.util import probe_block
+
 NEG_INF = -1e30
 # logical keys per split of the decode kernels (CHUNK in csrc/decode_sweep.cuh)
 DECODE_CHUNK = 64
@@ -64,8 +66,8 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     G = Hq // Hkv
-    block_q = min(block_q, max(Sq, 16))
-    block_kv = min(block_kv, max(Skv, 16))
+    block_q = probe_block(min(block_q, max(Sq, 16)), Sq)
+    block_kv = probe_block(min(block_kv, max(Skv, 16)), Skv)
     scale = _scale(D)
     dev = q.device
     qr = q.reshape(B, Sq, Hkv, G, D).float()
@@ -115,7 +117,7 @@ def decode_attention(q, k_cache, v_cache, length, *, block_kv: int = 1024,
     B, Hq, D = q.shape
     _, S, Hkv, _ = k_cache.shape
     G = Hq // Hkv
-    block_kv = min(block_kv, max(S, 16))
+    block_kv = probe_block(min(block_kv, max(S, 16)), S)
     scale = _scale(D)
     dev = q.device
     lengths = torch.as_tensor(length, dtype=torch.int32, device=dev).expand(B)
@@ -268,7 +270,7 @@ def mlstm_chunked(q, k, v, i_raw, f_raw, state=None, *, block: int = 64):
     """
     B, S, H, Dk = q.shape
     Dv = v.shape[-1]
-    block = min(block, S)
+    block = probe_block(min(block, S), S, target_iters=2)
     scale = _scale(Dk)
     pad = (-S) % block
     qp, kp, vp = (_pad_steps(t, pad) for t in (q, k, v))

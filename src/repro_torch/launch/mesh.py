@@ -1,5 +1,5 @@
 """Device meshes over a ``torch.distributed`` world (port of
-``repro.launch.mesh``'s ``make_mesh`` and ``mesh_tag``).
+``repro.launch.mesh``).
 
 :func:`init_world` starts the process group and picks its backend, and says
 which one it picked:
@@ -14,8 +14,13 @@ which one it picked:
   (:func:`install_host_staging`) and counts what they move.
 
 :func:`make_mesh` lays a ``DeviceMesh`` with named axes over the world.
-``make_production_mesh`` (the 16x16 v5e pods) belongs with the dry run,
-which is not ported yet.
+
+:func:`make_production_mesh` lays the reference's production mesh, (16, 16)
+over ``("data", "model")`` or (2, 16, 16) over ``("pod", "data", "model")``,
+over the first 256 or 512 ranks of the world. The dry run
+(``repro_torch.launch.dryrun``) lays it over :func:`init_fake_world`'s world:
+``torch.distributed``'s fake process group, in which this one process is
+rank 0 of 256 or 512 ranks and no collective sends anything.
 """
 from __future__ import annotations
 
@@ -113,6 +118,40 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device: str = "cuda"):
     ops.register_op_shardings()
     return init_device_mesh(torch.device(device).type, tuple(int(s) for s in shape),
                             mesh_dim_names=tuple(axes))
+
+
+def init_fake_world(world_size: int) -> None:
+    """Start ``torch.distributed``'s fake process group (backend ``"fake"``
+    over a ``FakeStore``): this process is rank 0 of ``world_size`` ranks,
+    no other process is started and no collective sends anything. Tear it
+    down with ``torch.distributed.destroy_process_group()``."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
+    """The reference's production mesh: (16, 16) over ``("data", "model")``,
+    or with ``multi_pod`` (2, 16, 16) over ``("pod", "data", "model")``
+    (``pod`` an outer pure data-parallel axis), laid row-major over ranks
+    0..255 or 0..511 of the initialised world (:func:`init_fake_world`'s for
+    the dry run), with the custom ops' DTensor sharding rules registered."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels import ops
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for s in shape:
+        n *= s
+    if dist.get_world_size() < n:
+        raise ValueError(f"the production mesh {shape} needs {n} ranks; the world has "
+                         f"{dist.get_world_size()}")
+    ops.register_op_shardings()
+    return DeviceMesh(torch.device(device).type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 def mesh_tag(mesh) -> str:

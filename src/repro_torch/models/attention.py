@@ -22,7 +22,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.dist.flash_decode import decode_attention_seqsharded, seq_shard_axis
-from repro_torch.dist.sharding import active_rules, constrain, current_mesh, is_dtensor, replicated
+from repro_torch.dist.sharding import (
+    active_rules, constrain, current_mesh, flatten_last, is_dtensor, replicated,
+    unflatten_last,
+)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import bias_spec, dense_spec, rotate
 
@@ -46,26 +49,23 @@ def attention_specs(cfg, dtype, stack: Tuple[int, ...] = ()):
 
 
 def _proj_q(cfg, p, x):
-    B, S, _ = x.shape
     q = torch.matmul(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    return q.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+    return unflatten_last(q, cfg.n_heads, cfg.resolved_head_dim)
 
 
 def _proj_kv(cfg, p, x):
-    B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     k = torch.matmul(x, p["wk"])
     v = torch.matmul(x, p["wv"])
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    return k.reshape(B, S, cfg.n_kv_heads, hd), v.reshape(B, S, cfg.n_kv_heads, hd)
+    return unflatten_last(k, cfg.n_kv_heads, hd), unflatten_last(v, cfg.n_kv_heads, hd)
 
 
 def _out(cfg, p, o):
-    B, S = o.shape[:2]
-    y = torch.matmul(o.reshape(B, S, -1), p["wo"])
+    y = torch.matmul(flatten_last(o), p["wo"])
     if "bo" in p:
         y = y + p["bo"]
     return constrain(y, "batch", "seq", "embed")

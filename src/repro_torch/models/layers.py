@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import pytree
-from repro_torch.dist.sharding import constrain, is_dtensor
+from repro_torch.dist.sharding import constrain, is_dtensor, local_shape_and_offset
 from repro_torch.dtypes import torch_dtype
 
 # (generator, shape, dtype) -> tensor on the generator's device
@@ -295,7 +295,6 @@ def _lookup(table, tokens):
     gather and its scatter-add fail on torch 2.11 and leave a mask the wrong
     shape on 2.13.)"""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     mesh, tab_pl = table.device_mesh, list(table.placements)
     if not all(p.is_replicate() or (type(p) is Shard and p.dim == 0) for p in tab_pl):
@@ -307,8 +306,7 @@ def _lookup(table, tokens):
     local = table.to_local(grad_placements=[
         Partial() if t.is_shard() else (Shard(0) if p.is_shard() else Replicate())
         for t, p in zip(tok_pl, tab_pl)])
-    (rows_here, _), (start, _) = compute_local_shape_and_global_offset(
-        table.shape, mesh, tab_pl)
+    (rows_here, _), (start, _) = local_shape_and_offset(table.shape, mesh, tab_pl)
     idx = (tokens.to_local() if is_dtensor(tokens) else tokens) - start
     inside = (idx >= 0) & (idx < rows_here)
     rows = local[idx.clamp(0, rows_here - 1)] * inside[..., None].to(local.dtype)

@@ -10,11 +10,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch import pytree
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.dist.sharding import (
-    active_rules, current_mesh, is_dtensor, pad_sharded, placements, replicated,
+    active_rules, current_mesh, is_dtensor, local_shape_and_offset, pad_sharded, placements,
+    replicated,
 )
 from repro_torch.dtypes import torch_dtype
+from repro_torch.models.frontends import frontend_input_specs
 from repro_torch.models.layers import (
     ParamSpec, apply_norm, embed_tokens, embedding_specs, init_tree, is_spec, logits_head,
     norm_specs,
@@ -187,11 +189,10 @@ def _label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     if not is_dtensor(logits):
         return torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
     from torch.distributed.tensor import DTensor, Partial, Replicate
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     mesh, pl = logits.device_mesh, logits.placements
     local = logits.to_local()
-    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, list(pl))
+    _, offset = local_shape_and_offset(logits.shape, mesh, pl)
     row_pl = [Replicate() if p.is_shard(2) else p for p in pl]
     lab = replicated(labels, mesh).redistribute(mesh, row_pl).to_local() - offset[2]
     inside = (lab >= 0) & (lab < local.shape[2])
@@ -204,3 +205,31 @@ def _label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def build_model(cfg: ArchConfig, max_seq: int) -> Model:
     return Model(cfg, max_seq)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, batch_override: Optional[int] = None):
+    """Meta-tensor inputs (shape and dtype, no storage) of the step that
+    ``shape.kind`` selects, as the JAX package's ``input_specs``:
+
+    train   -> {"tokens": int32 [B, S+1]} (+ the frontend's input)
+    prefill -> {"tokens": int32 [B, S]}   (+ the frontend's input)
+    decode  -> {"token":  int32 [B, 1]}   (the cache from ``Model.cache_specs``)
+
+    int32, as the data pipeline gives tokens to ``Model.loss``."""
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+
+    def ids(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+
+    if shape.kind == "train":
+        d = {"tokens": ids(B, S + 1)}
+        d.update(frontend_input_specs(cfg, B, S))
+    elif shape.kind == "prefill":
+        d = {"tokens": ids(B, S)}
+        d.update(frontend_input_specs(cfg, B, S))
+    elif shape.kind == "decode":
+        d = {"token": ids(B, 1)}
+    else:
+        raise ValueError(shape.kind)
+    return d

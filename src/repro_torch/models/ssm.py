@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist.sharding import constrain, flatten_last, unflatten_last
 from repro_torch.dtypes import torch_dtype
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import (
@@ -107,7 +107,10 @@ def mamba_forward(cfg, p: dict, x: torch.Tensor, state=None):
     xi = constrain(xi, "batch", "seq", "ffn")
     xc, new_conv = _causal_depthwise_conv(xi, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc)
-    proj = torch.matmul(xc, p["x_proj"])
+    # the projection summed over the ranks that split d_inner before it is
+    # sliced: torch 2.11's DTensor otherwise plans dt's matmul as a
+    # redistribution it cannot run (Shard to Partial)
+    proj = constrain(torch.matmul(xc, p["x_proj"]), "batch", "seq", None)
     dt = _mamba_dt(p, proj[..., :dtr])
     y, h_final = ops.selective_scan(xc, dt, p["a_log"], proj[..., dtr:dtr + ds],
                                     proj[..., dtr + ds:], p["d_skip"], h0=ssm_state)
@@ -183,20 +186,19 @@ def _mlstm_qkvif(cfg, p, x):
 
 def mlstm_forward(cfg, p: dict, x: torch.Tensor, state=None):
     """x: [B,S,d] -> (y [B,S,d], (C, n, m, conv_hist))."""
-    d_in, H, dk, dv = mlstm_dims(cfg)
-    B, S, _ = x.shape
+    _, H, dk, dv = mlstm_dims(cfg)
     xi, z = _mlstm_qkvif(cfg, p, x)
     conv_hist = state[3] if state is not None else None
     xc, new_conv = _causal_depthwise_conv(xi, p["conv_w"], p["conv_b"], conv_hist)
     xc = F.silu(xc)
-    q = torch.matmul(xc, p["w_q"]).reshape(B, S, H, dk)
-    k = torch.matmul(xc, p["w_k"]).reshape(B, S, H, dk)
-    v = xi.reshape(B, S, H, dv)                          # the pre-conv branch
+    q = unflatten_last(torch.matmul(xc, p["w_q"]), H, dk)
+    k = unflatten_last(torch.matmul(xc, p["w_k"]), H, dk)
+    v = unflatten_last(xi, H, dv)                        # the pre-conv branch
     i_raw = torch.matmul(xc, p["w_i"])
     f_raw = torch.matmul(xc, p["w_f"]).float() + p["f_bias"]
     core_state = None if state is None else tuple(state[:3])
     h, (C, n, m) = ops.mlstm(q, k, v, i_raw, f_raw, state=core_state)
-    h = rms_norm(h.reshape(B, S, d_in), p["hn_scale"]) * F.silu(z)
+    h = rms_norm(flatten_last(h), p["hn_scale"]) * F.silu(z)
     return constrain(torch.matmul(h, p["w_down"]), "batch", "seq", "embed"), (C, n, m, new_conv)
 
 
@@ -209,9 +211,9 @@ def mlstm_decode_step(cfg, p: dict, x_t: torch.Tensor, state):
     C0, n0, m0, conv_hist = state
     window = torch.cat([conv_hist, xi], dim=1)                        # [B,cw,d_in]
     xc = F.silu(_conv_step(window, p["conv_w"], p["conv_b"]))
-    q = torch.matmul(xc, p["w_q"]).reshape(B, H, dk)
-    k = torch.matmul(xc, p["w_k"]).reshape(B, H, dk)
-    v = xi[:, 0].reshape(B, H, dv)
+    q = unflatten_last(torch.matmul(xc, p["w_q"]), H, dk)
+    k = unflatten_last(torch.matmul(xc, p["w_k"]), H, dk)
+    v = unflatten_last(xi[:, 0], H, dv)
     i_raw = torch.matmul(xc, p["w_i"])
     f_raw = torch.matmul(xc, p["w_f"]).float() + p["f_bias"]
     h = ops.mlstm_step(q, k, v, i_raw, f_raw, (C0, n0, m0))

@@ -25,7 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import pytree
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist.sharding import active_rules, constrain, current_mesh, use_rules
 from repro_torch.dtypes import torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -95,7 +95,10 @@ def maybe_remat(cfg, fn):
       matmuls and recomputes everything else.
 
     It applies only while grad is enabled: a forward with no backward (a
-    prefill, an export) runs ``fn`` with nothing added to its graph."""
+    prefill, an export) runs ``fn`` with nothing added to its graph. Under
+    sharding rules the recompute runs under the rules of the forward: the
+    autograd engine runs a CUDA backward on a thread of its own, where the
+    thread-local rules of ``use_rules`` are not active."""
     if cfg.remat == "none":
         return fn
     if cfg.remat not in ("full", "dots"):
@@ -107,7 +110,14 @@ def maybe_remat(cfg, fn):
     def remat(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        rules, mesh = active_rules(), current_mesh()
+        if rules is None:
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+        def under_rules(*a):
+            with use_rules(rules, mesh):
+                return fn(*a)
+        return checkpoint(under_rules, *args, use_reentrant=False, **kw)
 
     return remat
 

@@ -37,6 +37,7 @@ def flatten_with_paths(tree, is_leaf: Callable[[Any], bool] = None
         out.append((path, node))
 
     walk(tree, "")
+    del walk        # the recursive closure is a reference cycle that would hold the leaves
     return out
 
 
@@ -57,7 +58,9 @@ def structure(tree, is_leaf: Callable[[Any], bool] = None):
             return type(node)(walk(v) for v in node)
         return next(counter)
 
-    return walk(tree)
+    out = walk(tree)
+    del walk        # break the recursive closure's reference cycle
+    return out
 
 
 def unflatten(struct, flat: List[Any]):

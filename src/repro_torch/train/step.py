@@ -26,6 +26,7 @@ import torch
 from repro_torch import pytree
 from repro_torch.dist.sharding import is_dtensor
 from repro_torch.optim.adamw import AdamW
+from repro_torch.util import rscan
 
 METRIC_KEYS = ("loss", "ce", "aux", "zloss")
 
@@ -70,15 +71,20 @@ def make_train_step(model, opt: AdamW, *, grad_accum: int = 1,
 
         micro = {k: split(v) for k, v in batch.items()}
         device = pytree.leaves(params)[0].device
-        acc = [torch.zeros_like(p, dtype=torch.float32) for p in pytree.leaves(params)]
-        metrics_acc = {k: torch.zeros((), dtype=torch.float32, device=device)
-                       for k in METRIC_KEYS}
-        for a in range(grad_accum):
-            grads, metrics = loss_and_grads(model, params,
-                                            place({k: v[a] for k, v in micro.items()}))
+
+        def body(carry, mb):
+            grads, metrics = loss_and_grads(model, params, place(mb))
+            if carry is None:       # zero accumulators, made once the first grads are out
+                carry = ([torch.zeros_like(g, dtype=torch.float32) for g in grads],
+                         {k: torch.zeros((), dtype=torch.float32, device=device)
+                          for k in METRIC_KEYS})
+            acc, metrics_acc = carry
             acc = [s + g.float() for s, g in zip(acc, grads)]
-            del grads
-            metrics_acc = {k: metrics_acc[k] + metrics[k] / grad_accum for k in METRIC_KEYS}
+            del grads, carry
+            return (acc, {k: metrics_acc[k] + metrics[k] / grad_accum
+                          for k in METRIC_KEYS}), None
+
+        (acc, metrics_acc), _ = rscan(body, None, micro)
         return [g / grad_accum for g in acc], metrics_acc
 
     def train_step(params, opt_state, batch: Dict):

@@ -60,8 +60,15 @@ def test_port_sources_were_found():
     jax_dist = {p.name for p in (ROOT / "src" / "repro" / "dist").glob("*.py")} - NOT_PORTED
     port_dist = {p.name for p in (ROOT / "src" / "repro_torch" / "dist").glob("*.py")}
     assert {"sharding.py", "collectives.py", "flash_decode.py"} <= jax_dist <= port_dist
-    for name in ("train.py", "mesh.py", "serve.py"):
+    for name in ("train.py", "mesh.py", "serve.py", "dryrun.py", "costmodel.py"):
         assert (ROOT / "src" / "repro_torch" / "launch" / name).is_file(), name
+    # the launchers: a counterpart of every module of repro.launch, and of
+    # repro/util.py
+    jax_launch = {p.name for p in (ROOT / "src" / "repro" / "launch").glob("*.py")}
+    port_launch = {p.name for p in (ROOT / "src" / "repro_torch" / "launch").glob("*.py")}
+    assert {"dryrun.py", "costmodel.py", "mesh.py"} <= jax_launch <= port_launch
+    assert (ROOT / "src" / "repro_torch" / "util.py").is_file()
+    assert NOT_PORTED == {"compat.py"}
     assert {"adamw.py", "pipeline.py", "checkpoint.py", "step.py", "trainer.py",
             "train.py"} <= names
 
@@ -74,7 +81,8 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
             "repro_torch.launch.train, repro_torch.data, repro_torch.optim, "
             "repro_torch.checkpoint, repro_torch.dist, repro_torch.dist.sharding, "
             "repro_torch.dist.collectives, repro_torch.dist.flash_decode, "
-            "repro_torch.launch.mesh, repro_torch.launch.serve; "
+            "repro_torch.launch.mesh, repro_torch.launch.serve, repro_torch.launch.dryrun, "
+            "repro_torch.launch.costmodel, repro_torch.util; "
             "import torch.distributed as dist; "
             "assert not dist.is_initialized(), 'a process group started'; "
             "from repro_torch.core import FunctionSpec, Gateway; "

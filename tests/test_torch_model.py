@@ -61,6 +61,7 @@ def test_config_copy_equals_jax_field_by_field(reduced):
         j, t = j.reduced(), t.reduced()
     assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.shape_names() == j.shape_names() and t.skipped_shapes() == j.skipped_shapes()
 
 
 def test_other_families_are_not_yet_ported():
