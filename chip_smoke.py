@@ -60,7 +60,10 @@ the script exits non-zero:
    at serve_tp's 2 rows of 12/4 heads over 516 positions, and the decode
    kernel's stats entry at serve_seqkv's 2 rows of one 16,384-position
    shard, full and holding the second shard's lengths, and with empty
-   shards), with kernel / plain / library times (CUDA events
+   shards; for the stats entry also lengths off the edges of its splits,
+   one row of a 32,768-position shard and 16/8 heads at D = 64, timed, each
+   with its split kernel's and merge's device time from ``torch.profiler``,
+   and the plain version in its split order), with kernel / plain / library times (CUDA events
    around back-to-back calls: ``ms``, ``plain_ms``, ``library_ms``), the
    device alone (``device_ms``, ``library_device_ms``: 200 calls captured
    in one CUDA graph and replayed), the wrapper's host time per call
@@ -235,8 +238,10 @@ the script exits non-zero:
    through host memory, every byte counted), a (data=2, model=2) mesh, and
    five cells: (a) ``serve_tp``, llama at 2 layers, B=4, a 512-token
    prompt, 4 forced decode steps; (b) ``serve_seqkv``, a 32,768-position
-   cache cut across both model ranks and a 16,400-token prompt, 4 steps,
-   every rank launching the decode kernel's stats entry; (c) a kimi-k2 MoE
+   cache cut across both model ranks and a 16,400-token prompt, 4 steps
+   from per-row positions (rows cut to 16,400, 12,000, 16,390 and 16,382
+   tokens: writes on both shards, an empty shard, a row crossing the
+   boundary), every rank launching the decode kernel's stats entry; (c) a kimi-k2 MoE
    layer (16 of 384 experts) with the local dispatch against the global one;
    (e) the int8 all-reduce of 50,334,720 f32 elements, 8 rounds with error
    feedback; (d) phase 3t's training for 2 steps, then a run to step 1
@@ -642,7 +647,7 @@ def rel_l2(a, b) -> float:
 
 
 def ptxas_lines(lib_path, sources=("flash_attention.cu", "mlstm.cu", "decode_attention.cu",
-                                    "paged_decode_attention.cu")) -> list:
+                                    "decode_stats.cu", "paged_decode_attention.cu")) -> list:
     """The ``ptxas -v`` lines (entry, registers, shared memory, spills) of
     ``sources`` in the build log next to the library."""
     path = Path(lib_path).parent / "build.log"
@@ -725,11 +730,46 @@ def check_decode(torch, F, da, ref, gen, case, timed: bool):
     return row
 
 
+def kernel_parts_ms(torch, fn, calls: int = 50) -> dict:
+    """Device ms per launch of each CUDA kernel ``fn`` launches, by kernel
+    name, from ``torch.profiler``'s kernel intervals over ``calls`` calls
+    (the mean of the ``records`` the profile kept):
+    ``exposed`` counts only the part of a kernel's interval past the end of
+    the kernel before it (a merge launched with programmatic dependent
+    launch starts early and waits for the split kernel; its wait is not its
+    work), ``span`` the whole interval. Empty where the profiler records no
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+                     if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+    parts, prev_end = {}, float("-inf")
+    for start, end, name in kernels:
+        name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.replace("void ", "").strip()
+        row = parts.setdefault(name, {"exposed": 0.0, "span": 0.0, "records": 0})
+        row["exposed"] += max(0.0, end - max(start, prev_end)) / 1e3
+        row["span"] += (end - start) / 1e3
+        row["records"] += 1
+        prev_end = max(prev_end, end)
+    for row in parts.values():          # the mean of the records the profile kept
+        row["exposed"] /= row["records"]
+        row["span"] /= row["records"]
+    return parts
+
+
 def check_decode_stats(torch, da, ref, gen, case, timed: bool):
     """The decode kernel's stats entry against ``ref.decode_attention(...,
     return_stats=True)``: m (natural-log units) and l of the live rows within
-    the scaled tolerance, acc / l within the decode tolerance, and every row
-    of length 0 exactly (NEG_INF, 0, 0)."""
+    the scaled tolerance, acc / l within the decode tolerance (also against
+    ``ref.decode_attention_stats_splits``, the kernel's split order), and
+    every row of length 0 exactly (NEG_INF, 0, 0). Timed: also each of its
+    kernels' device time (the split kernel, the merge)."""
     B, S, Hq, Hkv, D, lengths, dtype = case
     dt = getattr(torch, dtype)
     q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(dt)
@@ -742,22 +782,27 @@ def check_decode_stats(torch, da, ref, gen, case, timed: bool):
     m, l, acc = da.decode_attention_stats(q, kc, vc, length)
     again = da.decode_attention_stats(q, kc, vc, length)
     em, el, ea = ref.decode_attention(q, kc, vc, length, return_stats=True)
+    sm, sl, sa = ref.decode_attention_stats_splits(q, kc, vc, length)
     torch.cuda.synchronize()
     live = torch.tensor([n > 0 for n in lengths], device="cuda")
     out = acc / torch.where(l == 0, 1.0, l)[..., None]
     want = ea / torch.where(el == 0, 1.0, el)[..., None]
+    split_want = sa / torch.where(sl == 0, 1.0, sl)[..., None]
     err = (out - want).abs().max().item()
+    split_err = (out - split_want).abs().max().item()
     m_err = scaled_err(m[live], em[live]) if bool(live.any()) else 0.0
     l_err = scaled_err(l[live] / el[live].clamp_min(1e-30), torch.ones_like(el[live])) \
         if bool(live.any()) else 0.0
     empty_exact = all(bool((m[b] == ref.NEG_INF).all() and (l[b] == 0).all() and
                            (acc[b] == 0).all()) for b, n in enumerate(lengths) if n == 0)
     rerun_bitwise = all(bool(torch.equal(a, b)) for a, b in zip((m, l, acc), again))
-    ok = all(bool(torch.isfinite(t).all()) for t in (m, l, acc)) and err <= TOL[dtype] and \
+    ok = all(bool(torch.isfinite(t).all()) for t in (m, l, acc)) and \
+        max(err, split_err) <= TOL[dtype] and \
         m_err <= SCALED_TOL["float32"] and l_err <= SCALED_TOL["float32"] and \
         empty_exact and rerun_bitwise
     row = {"case": [B, S, Hq, Hkv, D, list(lengths), dtype], "max_abs_err": err,
-           "scaled_err_m": m_err, "rel_err_l": l_err, "empty_rows_exact": empty_exact,
+           "vs_split_order_max_abs_err": split_err, "scaled_err_m": m_err,
+           "rel_err_l": l_err, "empty_rows_exact": empty_exact,
            "rerun_bitwise": rerun_bitwise, "ok": ok}
     if timed:
         n_live = sum(min(n, S) for n in lengths)
@@ -769,6 +814,8 @@ def check_decode_stats(torch, da, ref, gen, case, timed: bool):
         row.update(timings(
             torch, lambda: da.decode_attention_stats(q, kc, vc, length), 200,
             lambda: ref.decode_attention(q, kc, vc, length, return_stats=True), 20))
+        row["parts_device_ms"] = kernel_parts_ms(
+            torch, lambda: da.decode_attention_stats(q, kc, vc, length))
     return row
 
 
@@ -2829,9 +2876,13 @@ MESH_MEMORY_LIMIT = 70e9            # the ranks' peak device memory, summed
 # 512-token prompt, 4 decode steps (cut from 16: a step of the mesh takes
 # about 1.2 s, its collectives staged through host memory); (b) serve_seqkv: decode_32k's cache of
 # 32,768 positions and a 16,400-token prompt, so that both model shards hold
-# keys (the boundary is at 16,384), 4 decode steps
+# keys (the boundary is at 16,384), 4 decode steps from per-row positions:
+# each row's prompt is cut to its own length, so the rows write on
+# different shards (16,400 and 16,390 on the second, 12,000 on the first,
+# whose second shard stays empty; 16,382 crosses the boundary at step 2)
 MESH_TP = dict(batch=4, prompt=512, steps=4)
-MESH_SEQKV = dict(batch=4, capacity=32768, prompt=16400, steps=4)
+MESH_SEQKV = dict(batch=4, capacity=32768, prompt=16400, steps=4,
+                  lengths=(16400, 12000, 16390, 16382))
 # (c) one kimi-k2 MoE layer at published widths, 16 of its 384 experts
 # (phase 3g's cut), B=4, S=512; capacity_factor 64 gives every expert room
 # for every token (C = T), so the capacity never binds
@@ -2853,20 +2904,30 @@ MESH_TRAIN_RTOL = 1e-3
 MESH_PARAM_BOUND = 0.25
 
 
-def mesh_logits(torch, model, params, toks, prompt: int, capacity: int, steps: int):
+def mesh_logits(torch, model, params, toks, prompt: int, capacity: int, steps: int,
+                lengths=None):
     """Last-position prefill logits and each forced decode step's logits
     (every step feeds the next token of ``toks``), gathered whole, f32,
-    with the seconds of the prefill and of each step."""
+    with the seconds of the prefill and of each step. With ``lengths`` each
+    row's prompt is cut to its own length: the cache's position is set per
+    row (an int32 [B] tensor) after the prefill, and row b's step t feeds
+    ``toks[b, lengths[b] + t]`` at that position (what the prefill wrote
+    past a row's length is never attended and is overwritten)."""
     def whole(x):
         return (x.full_tensor() if hasattr(x, "full_tensor") else x).float()
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, {"tokens": toks[:, :prompt]}, capacity=capacity)
+    rows = torch.arange(toks.shape[0], device=toks.device)
+    if lengths is not None:
+        cache = {**cache, "pos": torch.tensor(lengths, dtype=torch.int32, device=toks.device)}
     outs = [whole(logits)]
     torch.cuda.synchronize()
     times = [time.perf_counter() - t0]
     for t in range(steps):
         t0 = time.perf_counter()
-        logits, cache = model.decode(params, cache, toks[:, prompt + t:prompt + t + 1])
+        token = (toks[:, prompt + t:prompt + t + 1] if lengths is None
+                 else toks[rows, cache["pos"].long()][:, None])
+        logits, cache = model.decode(params, cache, token)
         outs.append(whole(logits))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
@@ -2887,10 +2948,10 @@ def mesh_gate(torch, got, kernel, f32, label: str) -> dict:
 
 
 def mesh_serve_cell(torch, ctx, preset: str, batch: int, prompt: int, capacity: int,
-                    steps: int) -> dict:
+                    steps: int, lengths=None) -> dict:
     """Cells (a) and (b): the llama's prefill and forced decode steps under
-    ``preset`` on the (data, model) mesh, against the single-device paths on
-    rank 0."""
+    ``preset`` on the (data, model) mesh (from per-row positions with
+    ``lengths``), against the single-device paths on rank 0."""
     from repro_torch import pytree
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import distribute_tree, make_rules, param_shardings, use_rules
@@ -2911,18 +2972,19 @@ def mesh_serve_cell(torch, ctx, preset: str, batch: int, prompt: int, capacity: 
                          device="cuda")
     def run():
         with torch.no_grad(), use_rules(rules, mesh):
-            return mesh_logits(torch, model, dp, toks, prompt, capacity, steps)
+            return mesh_logits(torch, model, dp, toks, prompt, capacity, steps, lengths)
     out = ctx["measure"](run)
     got, times = out.pop("result")
     del dp
     out.update(distribute_s=t_dist, prefill_s=times[0], step_s=times[1:])
     if rank == 0:                       # the single-device references, not counted
         with torch.no_grad():
-            kernel, _ = mesh_logits(torch, model, params, toks, prompt, capacity, steps)
+            kernel, _ = mesh_logits(torch, model, params, toks, prompt, capacity, steps,
+                                    lengths)
             m32 = build_model(dataclasses.replace(cfg, dtype="float32"), max_seq=capacity)
             p32 = pytree.tree_map(lambda t: t.float(), params)
             with ops.impl_scope("plain"):
-                f32, _ = mesh_logits(torch, m32, p32, toks, prompt, capacity, steps)
+                f32, _ = mesh_logits(torch, m32, p32, toks, prompt, capacity, steps, lengths)
         out["gate"] = mesh_gate(torch, got, kernel, f32, preset)
         del p32, kernel, f32
     return out
@@ -3192,7 +3254,7 @@ def mesh_rank_main(rank: int, work: str) -> int:
         if "serve_seqkv" in wanted:
             cells["serve_seqkv"] = mesh_serve_cell(
                 torch, ctx, "serve_seqkv", MESH_SEQKV["batch"], MESH_SEQKV["prompt"],
-                MESH_SEQKV["capacity"], MESH_SEQKV["steps"])
+                MESH_SEQKV["capacity"], MESH_SEQKV["steps"], MESH_SEQKV["lengths"])
         if "moe" in wanted:
             cells["moe"] = mesh_moe_cell(torch, ctx)
         if "allreduce" in wanted:
@@ -3694,13 +3756,26 @@ def main(mesh_only=False):
     # data and the 32,768-position cache on model, so each rank holds 2 rows
     # of 16,384 positions; the first shard full, the second's lengths over
     # the decode steps; then empty shards and odd shapes
+    stats_long = (1, 32768, 24, 8, 128, [32768], "bfloat16")
+    stats_d64 = (2, 16384, 16, 8, 64, [16384, 9999], "bfloat16")
     stats_cases = [(2, 16384, 24, 8, 128, [16384] * 2, "bfloat16"),
                    (2, 16384, 24, 8, 128, [16, 20], "bfloat16"),
                    (2, 16384, 24, 8, 128, [0, 0], "bfloat16"),
                    (4, 16384, 24, 8, 128, [16, 17, 0, 20], "bfloat16"),
                    (3, 100, 4, 4, 32, [1, 0, 100], "bfloat16"),
                    (2, 264, 24, 8, 128, [1, 200], "float32"),
-                   (3, 200, 34, 2, 64, [200, 0, 77], "float32")]
+                   (3, 200, 34, 2, 64, [200, 0, 77], "float32"),
+                   # the stats kernel's splits of 1,024 keys at 16,384 positions:
+                   # lengths off their edges; one row of a 32,768-position shard
+                   # (splits of 2,048); 16/8 heads at D = 64; two row tiles (G = 17)
+                   (2, 16384, 24, 8, 128, [16383, 1025], "bfloat16"),
+                   (3, 16384, 24, 8, 128, [1023, 5000, 9], "bfloat16"),
+                   stats_long,
+                   (1, 32768, 24, 8, 128, [20001], "bfloat16"),
+                   stats_d64,
+                   (2, 3000, 16, 8, 64, [3000, 2047], "float32"),
+                   (2, 2100, 34, 2, 64, [2100, 1500], "bfloat16"),
+                   (2, 1100, 8, 2, 32, [1100, 65], "bfloat16")]
     # B, page_size, max_pages, Hq, Hkv, D, lengths, dtype; the first is the
     # decode tier's shape (8 slots, 33 pages of 16 = 528 positions)
     paged_cases = [(8, 16, 33, 24, 8, 128, [528] * 8, "bfloat16"),
@@ -3754,7 +3829,9 @@ def main(mesh_only=False):
                    id(flash_admit): "the decode tier's admit shape",
                    id(flash_bucket): "the 16-row bucket's shape",
                    id(decode_bucket): "the 16-row bucket's shape",
-                   id(decode_tp_local): "phase 3m serve_tp's local shape", **FAMILY_TIMED}
+                   id(decode_tp_local): "phase 3m serve_tp's local shape",
+                   id(stats_long): "one row of a 32,768-position shard",
+                   id(stats_d64): "16/8 heads at D = 64", **FAMILY_TIMED}
     results, bucket_rows, family_rows = {}, {}, {}
     for name, check, cases in (
             ("flash_attention",
@@ -3796,6 +3873,12 @@ def main(mesh_only=False):
             log(f"{name} at {where}: kernel_ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} "
                 f"host_us {r['host_us']:.1f} plain_ms {r['plain_ms']:.4f} "
                 f"library_ms {library} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}){split}")
+            if "parts_device_ms" in r:
+                parts = ", ".join(f"{k} exposed {v['exposed']:.4f} (span {v['span']:.4f}; "
+                                  f"{v['records']} records)"
+                                  for k, v in r["parts_device_ms"].items())
+                log(f"{name} at {where}: device_ms by kernel (torch.profiler, 50 calls): "
+                    f"{parts or 'not measured (the profile holds no kernel)'}")
         bad = [r["case"] for r in rows if not r["ok"]]
         if bad:
             raise AssertionError(f"{name} disagrees with its plain version on {bad}")
@@ -3914,7 +3997,7 @@ def main(mesh_only=False):
                                    "src/repro/kernels/flash_attention.py:33"),
                "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:35"),
-               "decode_attention_stats": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+               "decode_attention_stats": ("src/repro_torch/kernels/csrc/decode_stats.cu",
                                           "src/repro/kernels/decode_attention.py:35"),
                "paged_decode_attention": (
                    "src/repro_torch/kernels/csrc/paged_decode_attention.cu",

@@ -42,14 +42,35 @@ def seq_shard_axis(rules: Optional[Rules], mesh, seq_len: int) -> Optional[str]:
     return names[0]
 
 
+def head_dim_shard_axis(cache) -> Optional[str]:
+    """The mesh axis a DTensor cache [B, S, Hkv, D] is sharded over along
+    ``head_dim`` (``serve_tp``'s fall-through where the kv heads are fewer
+    than the axis's ranks), if its S divides over that axis, or None. The
+    decode kernel takes whole heads, so such a cache is decoded by
+    :func:`decode_attention_seqsharded` over that axis: resharded along its
+    sequence (an all-to-all of each rank's slice) where gathering it whole
+    would move the axis size times as many bytes and repeat the attention
+    on every rank. XLA contracts the ``head_dim`` slices and all-reduces the
+    scores instead; both split the attention's work over the axis."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(cache, DTensor):
+        return None
+    mesh = cache.device_mesh
+    dims = [i for i, p in enumerate(cache.placements) if p.is_shard(3)]
+    if len(dims) != 1 or cache.shape[1] % mesh.size(dims[0]):
+        return None
+    return mesh.mesh_dim_names[dims[0]]
+
+
 def decode_attention_seqsharded(q, k_cache, v_cache, length, mesh=None,
                                 axis: Optional[str] = None):
     """Decode attention over a cache whose seq dim is sharded along ``axis``.
 
     q: [B, Hq, D]; k_cache, v_cache: [B, S, Hkv, D] (S divisible by the axis
-    size), DTensors or plain tensors every rank holds whole (laid out here);
-    the cache may also be sharded over the batch on other mesh axes, never
-    over heads. length: int, or int32 [] / [B]. Returns [B, Hq, D] as a
+    size), DTensors or plain tensors every rank holds whole (laid out here,
+    from any layout along ``axis``); the cache may also be sharded over the
+    batch on other mesh axes, never over heads. length: int, or int32 [] / [B]. Returns [B, Hq, D] as a
     DTensor laid out as the cache's batch, matching
     ``kernels.ref.decode_attention`` on the unsharded cache.
     """
@@ -74,8 +95,7 @@ def decode_attention_seqsharded(q, k_cache, v_cache, length, mesh=None,
         raise ValueError(f"a seq-sharded cache shards batch and seq only: {cache_pl}")
     # q and the lengths: the cache's batch layout, whole over the seq axis
     row_pl = [Replicate() if i == ax else p for i, p in enumerate(cache_pl)]
-    k = replicated(k_cache, mesh).redistribute(mesh, cache_pl).to_local()
-    v = replicated(v_cache, mesh).redistribute(mesh, cache_pl).to_local()
+    k, v = (_sequence_slice(c, mesh, ax, cache_pl) for c in (k_cache, v_cache))
     qd = replicated(q, mesh).redistribute(mesh, row_pl)
     lengths = torch.as_tensor(length, dtype=torch.int32, device=k.device).expand(B)
     lengths = replicated(lengths.contiguous(), mesh).redistribute(mesh, row_pl).to_local()
@@ -97,3 +117,24 @@ def decode_attention_seqsharded(q, k_cache, v_cache, length, mesh=None,
     ql = qd.to_local()
     out = (acc_g / l_safe[..., None]).reshape(ql.shape).to(ql.dtype)   # [B, Hq, D]
     return DTensor.from_local(out, mesh, row_pl, run_check=False)
+
+
+def _sequence_slice(cache, mesh, ax: int, cache_pl):
+    """This rank's local slice of ``cache`` laid out as ``cache_pl`` (its
+    sequence cut along mesh dim ``ax``, the cache's own layout elsewhere). A
+    cache sharded along ``head_dim`` over ``ax`` is resharded by one
+    all-to-all of the local shard: rank j sends its ``head_dim`` slice of
+    every other rank's positions. DTensor's own redistribution would gather
+    the whole cache on the CPU, and on the card run a collective that
+    neither the host staging nor the dry run's counter sees."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+
+    if not (isinstance(cache, DTensor) and cache.placements[ax].is_shard(3)):
+        return replicated(cache, mesh).redistribute(mesh, cache_pl).to_local()
+    local = cache.to_local()                                  # [B, S, Hkv, D / n]
+    n = mesh.size(ax)
+    B, S, H, d = local.shape
+    send = local.reshape(B, n, S // n, H, d).transpose(0, 1).contiguous()
+    got = funcol.wait_tensor(funcol.all_to_all_single(send, None, None, mesh.get_group(ax)))
+    return got.reshape(n, B, S // n, H, d).permute(1, 2, 3, 0, 4).reshape(B, S // n, H, n * d)

@@ -315,17 +315,26 @@ def unflatten_last(x: torch.Tensor, *dims: int) -> torch.Tensor:
     return x.reshape(shape)
 
 
+def grad_laid_out(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself; a DTensor passed through a redistribution to its own
+    placements, whose backward lays the incoming gradient out as ``x`` is
+    laid out. A gradient that arrives as a partial sum over the model axis
+    (the input gradient of a projection sharded along its contracted dim)
+    is all-reduced there, where XLA reduces it, and not carried on into the
+    products of the layer below, which DTensor would then run on gathered,
+    whole weights."""
+    if is_dtensor(x):
+        x = x.redistribute(x.device_mesh, x.placements)
+    return x
+
+
 def flatten_last(x: torch.Tensor) -> torch.Tensor:
-    """``x`` [..., a, b] reshaped to [..., a * b] (heads merged). On a
-    DTensor the result is passed through a redistribution to its own
-    placements, whose backward lays the incoming gradient out as the result
-    is laid out: a gradient sharded along the merged dim in a way the heads
-    do not divide (the output projection's, 24 heads over 16 ranks) could
-    not be split back into heads."""
-    y = x.reshape(*x.shape[:-2], -1)
-    if is_dtensor(y):
-        y = y.redistribute(y.device_mesh, y.placements)
-    return y
+    """``x`` [..., a, b] reshaped to [..., a * b] (heads merged), its
+    gradient laid out as the result is (:func:`grad_laid_out`): a gradient
+    sharded along the merged dim in a way the heads do not divide (the
+    output projection's, 24 heads over 16 ranks) could not be split back
+    into heads."""
+    return grad_laid_out(x.reshape(*x.shape[:-2], -1))
 
 
 def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:

@@ -341,69 +341,6 @@ merge_kernel(const float* __restrict__ scratch, const int* __restrict__ length,
   store(o + i, A / (L == 0.f ? 1.f : L));
 }
 
-// The stats entry's merge: the same sums as merge_kernel, left unnormalised,
-// for a log-sum-exp merge of shards across ranks (distributed flash
-// decoding). Writes m [B, Hkv, G] in natural-log units (M ln 2), l = L and
-// acc [B, Hkv, G, D] = A, all f32. A row with no live split writes
-// m = kNegInf, l = 0 and acc = 0, as the reference's stats of an empty cache.
-__global__ void __launch_bounds__(MERGE_THREADS)
-merge_stats_kernel(const float* __restrict__ scratch, const int* __restrict__ length,
-                   float* __restrict__ m_out, float* __restrict__ l_out,
-                   float* __restrict__ acc_out, int B, int Hkv, int G, int D, int NS,
-                   int cap) {
-  const size_t total = static_cast<size_t>(B) * Hkv * G * D;
-  const size_t i = static_cast<size_t>(blockIdx.x) * MERGE_THREADS + threadIdx.x;
-  if (i >= total) return;
-  const int d = static_cast<int>(i % D);
-  const size_t row = i / D;                      // b * Hq + h = (b, hk, g) of m and l
-  const int Hq = Hkv * G;
-  const int b = static_cast<int>(row / Hq), h = static_cast<int>(row % Hq);
-  const int hk = h / G, g = h - hk * G;
-  int len = length[b];
-  pdl_wait();
-  len = len < 0 ? 0 : (len > cap ? cap : len);
-  const int n = (len + CHUNK - 1) / CHUNK;       // live splits
-  const float2* ml = reinterpret_cast<const float2*>(scratch + total * NS);
-  const size_t p0 = (static_cast<size_t>(b) * Hkv + hk) * NS * G + g;
-  float M = kNegInf;
-  for (int s = 0; s < n; ++s) M = fmaxf(M, ml[p0 + static_cast<size_t>(s) * G].x);
-  float L = 0.f, A = 0.f;
-  for (int s = 0; s < n; ++s) {
-    const size_t p = p0 + static_cast<size_t>(s) * G;
-    const float2 st = ml[p];
-    const float e = exp2f(st.x - M);
-    L = fmaf(st.y, e, L);
-    A = fmaf(scratch[p * D + d], e, A);
-  }
-  acc_out[i] = A;
-  if (d == 0) {
-    m_out[row] = n > 0 ? M * kLn2 : kNegInf;
-    l_out[row] = L;
-  }
-}
-
-template <typename Kernel, typename... Args>
-cudaError_t launch_pdl(Kernel kernel, size_t threads, cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>((threads + MERGE_THREADS - 1) / MERGE_THREADS));
-  cfg.blockDim = dim3(MERGE_THREADS);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
-inline cudaError_t launch_merge_stats(const float* scratch, const int* length, float* m,
-                                      float* l, float* acc, int B, int Hkv, int G, int D,
-                                      int NS, int cap, cudaStream_t stream) {
-  return launch_pdl(merge_stats_kernel, static_cast<size_t>(B) * Hkv * G * D, stream,
-                    scratch, length, m, l, acc, B, Hkv, G, D, NS, cap);
-}
-
 template <typename T>
 cudaError_t launch_merge(const float* scratch, const int* length, void* o, int B, int Hkv,
                          int G, int D, int NS, int cap, cudaStream_t stream) {

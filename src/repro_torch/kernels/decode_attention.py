@@ -12,10 +12,14 @@ version is ``ref.decode_attention``, re-exported as
 kernel's order.
 
 :func:`decode_attention_stats` is the kernel's second entry, for distributed
-flash decoding over a sequence-sharded cache: the same split kernel, then a
-merge that writes the online-softmax stats (m, l, acc) unnormalised instead
-of the output, with its own launch count. Its plain version is
-``ref.decode_attention(..., return_stats=True)``.
+flash decoding over a sequence-sharded cache: the online-softmax stats (m,
+l, acc) unnormalised instead of the output, with its own launch count. It
+has kernels of its own, built for shards of many thousand positions
+(``csrc/decode_stats.cu``): at most ``ref.STATS_MAX_SPLITS`` splits of a
+row, each sweeping its 64-key tiles through a ring of asynchronous copies,
+then a merge with one CTA per (row, kv head). Its plain version is
+``ref.decode_attention(..., return_stats=True)``;
+``ref.decode_attention_stats_splits`` sums in the kernel's order.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, check_cuda_operands
-from repro_torch.kernels.ref import DECODE_CHUNK
+from repro_torch.kernels.ref import DECODE_CHUNK, stats_split_span
 from repro_torch.kernels.ref import decode_attention as decode_attention_plain  # noqa: F401
 
 LAUNCHES = _cuda.LaunchCounter()
@@ -99,13 +103,14 @@ def decode_attention_stats(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     acc = torch.empty((B, Hkv, G, D), **f32)
     if q.numel() == 0:
         return m, l, acc
-    n_splits, scratch = split_scratch(B, Hq, Hkv, D, S, q.device)
+    span, n_splits = stats_split_span(S)
+    scratch = torch.empty(B * Hkv * n_splits * G * (D + 2), **f32)
     lib = _cuda.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.repro_decode_attention_stats(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
         m.data_ptr(), l.data_ptr(), acc.data_ptr(), scratch.data_ptr(), DTYPES[q.dtype],
-        B, S, Hq, Hkv, D, n_splits, stream)
+        B, S, Hq, Hkv, D, n_splits, span, stream)
     _cuda.check(rc, "decode_attention_stats")
     STATS_LAUNCHES.add()
     return m, l, acc

@@ -27,6 +27,8 @@ from repro_torch.util import probe_block
 NEG_INF = -1e30
 # logical keys per split of the decode kernels (CHUNK in csrc/decode_sweep.cuh)
 DECODE_CHUNK = 64
+# most splits of a row in the decode stats kernel (csrc/decode_stats.cu)
+STATS_MAX_SPLITS = 16
 
 
 def _scale(d: int) -> float:
@@ -170,6 +172,42 @@ def decode_attention_splits(q, k_cache, v_cache, length, *, chunk: int = DECODE_
         A = A + acc * e[..., None]
     L = torch.where(L == 0, 1.0, L)
     return (A / L[..., None]).reshape(B, Hq, D).to(q.dtype)
+
+
+def stats_split_span(cap: int):
+    """(keys per split, splits) of the decode stats kernel over a cache of
+    ``cap`` positions: splits of whole 64-key tiles, as few tiles each as
+    keeps a row at most ``STATS_MAX_SPLITS`` splits. The span depends on the
+    capacity alone; the kernel's wrapper passes this pair to
+    ``csrc/decode_stats.cu``."""
+    tiles = max(1, -(-cap // DECODE_CHUNK))
+    span = DECODE_CHUNK * -(-tiles // STATS_MAX_SPLITS)
+    return span, max(1, -(-cap // span))
+
+
+def decode_attention_stats_splits(q, k_cache, v_cache, length):
+    """``decode_attention(..., return_stats=True)`` in the stats kernel's
+    order: the f32 partials (m, l, acc) of each split of
+    :func:`stats_split_span` keys, then their log-sum-exp merge in split
+    order, ``M = max m_s; L = sum l_s e^(m_s - M); A = sum acc_s e^(m_s - M)``,
+    left unnormalised. A split at or past a row's length adds exactly
+    nothing; a row with no live key gives (NEG_INF, 0, 0)."""
+    B = q.shape[0]
+    S = k_cache.shape[1]
+    span, n = stats_split_span(S)
+    lengths = torch.as_tensor(length, dtype=torch.int32, device=q.device).expand(B)
+    live = torch.clamp(lengths, min=0, max=S)
+    parts = [decode_attention(q, k_cache[:, s0:s0 + span], v_cache[:, s0:s0 + span],
+                              torch.clamp(live - s0, min=0), return_stats=True)
+             for s0 in range(0, n * span, span)]
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        e = torch.exp(m - M)
+        L = L + l * e
+        A = A + acc * e[..., None]
+    return M, L, A
 
 
 def _gather_pages(k_pages, v_pages, page_table):

@@ -12,8 +12,9 @@ the cache or the page pool **in place** and return the same tensors (the JAX
 versions return updated copies): a per-step copy of the cache, or of a
 layer's page pool, would be bandwidth the decode step does not need. A cache
 that is a DTensor is written through each rank's local shard (DTensor has no
-rule for writing a slice of a sharded dim): the token's K/V land at
-``pos - offset`` on the rank whose slice of the sequence holds ``pos``.
+rule for writing a slice of a sharded dim): each row's K/V land at
+``pos - offset`` on the rank whose slice of the sequence holds the row's
+position (one ``pos`` for all rows, or per-row positions).
 """
 from __future__ import annotations
 
@@ -21,7 +22,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.dist.flash_decode import decode_attention_seqsharded, seq_shard_axis
+from repro_torch.dist.flash_decode import (
+    decode_attention_seqsharded, head_dim_shard_axis, seq_shard_axis,
+)
 from repro_torch.dist.sharding import (
     active_rules, constrain, current_mesh, flatten_last, is_dtensor, replicated,
     unflatten_last,
@@ -65,7 +68,11 @@ def _proj_kv(cfg, p, x):
 
 
 def _out(cfg, p, o):
-    y = torch.matmul(flatten_last(o), p["wo"])
+    # the merged heads laid out as wo's rows: where the heads stayed whole
+    # (a head count the model axis does not divide), each rank takes its
+    # slice of them, so wo's gradient is computed for that slice alone
+    o = constrain(flatten_last(o), "batch", "seq", "heads_flat")
+    y = torch.matmul(o, p["wo"])
     if "bo" in p:
         y = y + p["bo"]
     return constrain(y, "batch", "seq", "embed")
@@ -84,9 +91,32 @@ def attention_full(cfg, p: dict, x: torch.Tensor, rope, *, causal: bool = True,
     q = constrain(q, "batch", "seq", "heads", "head_dim")
     k = constrain(k, "batch", "kv_seq", "kv_heads", "head_dim")
     v = constrain(v, "batch", "kv_seq", "kv_heads", "head_dim")
-    o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+    ka, va = _kv_laid_out_as_q(q, k), _kv_laid_out_as_q(q, v)
+    o = ops.attention(q.contiguous(), ka.contiguous(), va.contiguous(),
                       causal=causal and kv_from is None, q_offset=q_offset)
     return _out(cfg, p, o), (k, v)
+
+
+def _kv_laid_out_as_q(q, kv):
+    """``kv`` [B,S,Hkv,D] for the attention op beside ``q`` [B,Sq,Hq,D]. Where
+    the rules shard q's heads over a mesh dim that the kv heads cannot take
+    (fewer kv heads than its ranks), each kv head is repeated for its group
+    of query heads and laid out as q: every rank attends with its own query
+    heads and the kv heads they read, as XLA partitions it. The attention
+    ops' rule shards q and kv heads together, so it would otherwise gather q
+    and run the whole attention, and its gradient, on every rank. The same
+    products, so the same result; elsewhere ``kv`` as it is."""
+    if not is_dtensor(q):
+        return kv
+    pl, kv_pl = q.placements, replicated(kv, q.device_mesh).placements
+    dims = [i for i, p in enumerate(pl) if p.is_shard(2) and not kv_pl[i].is_shard(2)]
+    if not dims:
+        return kv
+    B, S, Hkv, D = kv.shape
+    G = q.shape[2] // Hkv
+    kv = kv[:, :, :, None].expand(B, S, Hkv, G, D).reshape(B, S, Hkv * G, D)
+    return kv.redistribute(q.device_mesh, [pl[i] if i in dims else p
+                                           for i, p in enumerate(kv_pl)])
 
 
 def attention_decode(cfg, p: dict, x_t: torch.Tensor, k_cache: torch.Tensor,
@@ -111,7 +141,7 @@ def attention_decode(cfg, p: dict, x_t: torch.Tensor, k_cache: torch.Tensor,
         if is_dtensor(k_cache):
             _write_local(k_cache, pos, k_t)
             _write_local(v_cache, pos, v_t)
-            length = pos + 1
+            length = pos + 1 if isinstance(pos, int) else (pos + 1).to(torch.int32)
         elif isinstance(pos, int):
             k_cache[:, pos:pos + 1] = k_t             # copy_ casts to the cache dtype
             v_cache[:, pos:pos + 1] = v_t
@@ -123,9 +153,11 @@ def attention_decode(cfg, p: dict, x_t: torch.Tensor, k_cache: torch.Tensor,
             length = (pos + 1).to(torch.int32)
     k_cache = constrain(k_cache, "batch", "kv_seq", "kv_heads", "head_dim")
     v_cache = constrain(v_cache, "batch", "kv_seq", "kv_heads", "head_dim")
-    # distributed flash decoding when the cache sequence dim is mesh-sharded
+    # distributed flash decoding when the cache sequence dim is mesh-sharded,
+    # or when its head_dim is (resharded along the sequence first)
     mesh = current_mesh()
-    axis = seq_shard_axis(active_rules(), mesh, k_cache.shape[1])
+    axis = seq_shard_axis(active_rules(), mesh, k_cache.shape[1]) or \
+        head_dim_shard_axis(k_cache)
     if axis is not None:
         o = decode_attention_seqsharded(q[:, 0], k_cache, v_cache, length, mesh, axis)
     else:
@@ -134,14 +166,17 @@ def attention_decode(cfg, p: dict, x_t: torch.Tensor, k_cache: torch.Tensor,
 
 
 def _write_local(cache, pos, tok) -> None:
-    """Write ``tok`` [B,1,nkv,hd] at position ``pos`` (an int) of a DTensor
-    cache [B,S,nkv,hd], through the local shard of each rank: the token is
-    laid out as the cache but whole along the sequence, and the rank whose
-    slice of the sequence holds ``pos`` writes it at ``pos - offset``."""
+    """Write ``tok`` [B,1,nkv,hd] at position ``pos`` of a DTensor cache
+    [B,S,nkv,hd], through the local shard of each rank: the token is laid
+    out as the cache but whole along the sequence, and a row's token lands
+    at ``pos - offset`` on the rank whose slice of the sequence holds its
+    position. ``pos`` is an int (every row at one position) or an int
+    tensor [B] of per-row positions, laid out as the cache's rows; each rank
+    writes exactly its rows whose position falls in its slice, by a masked
+    ``index_put_`` (no host sync on ``pos``), and leaves the others as they
+    were."""
     from torch.distributed.tensor import Replicate
 
-    if not isinstance(pos, int):
-        raise NotImplementedError("a DTensor cache takes one position for every row")
     mesh, pl = cache.device_mesh, cache.placements
     local = cache.to_local()
     offset = 0
@@ -150,8 +185,15 @@ def _write_local(cache, pos, tok) -> None:
             offset += mesh.get_local_rank(i) * local.shape[1]
     tok_pl = [Replicate() if p.is_shard(1) else p for p in pl]
     tok = replicated(tok, mesh).redistribute(mesh, tok_pl).to_local()
-    if offset <= pos < offset + local.shape[1]:
-        local[:, pos - offset:pos - offset + 1] = tok
+    if isinstance(pos, int):
+        pos = torch.full((cache.shape[0],), pos, dtype=torch.int32, device=local.device)
+    row_pl = [p if p.is_shard(0) else Replicate() for p in pl]
+    rel = replicated(pos, mesh).redistribute(mesh, row_pl).to_local().long() - offset
+    inside = (rel >= 0) & (rel < local.shape[1])
+    rows = torch.arange(local.shape[0], device=local.device)
+    at = torch.where(inside, rel, 0)
+    local[rows, at] = torch.where(inside[:, None, None], tok[:, 0].to(local.dtype),
+                                  local[rows, at])
 
 
 def attention_decode_paged(cfg, p: dict, x_t: torch.Tensor, k_pages: torch.Tensor,

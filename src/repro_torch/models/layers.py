@@ -21,7 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import pytree
-from repro_torch.dist.sharding import constrain, is_dtensor, local_shape_and_offset
+from repro_torch.dist.sharding import (
+    constrain, grad_laid_out, is_dtensor, local_shape_and_offset,
+)
 from repro_torch.dtypes import torch_dtype
 
 # (generator, shape, dtype) -> tensor on the generator's device
@@ -117,12 +119,15 @@ def norm_specs(cfg, dtype, stack: Tuple[int, ...] = ()):
 
 
 def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The config's norm of ``x``; on a mesh its gradient comes back laid out
+    as the output is (``grad_laid_out``): the partial sums the projections
+    behind a norm send back are reduced at the norm."""
     if cfg.norm == "rmsnorm":
-        return rms_norm(x, p["scale"])
+        return grad_laid_out(rms_norm(x, p["scale"]))
     if cfg.norm == "layernorm":
-        return layer_norm(x, p["scale"], p["bias"])
+        return grad_laid_out(layer_norm(x, p["scale"], p["bias"]))
     if cfg.norm == "layernorm_np":
-        return layer_norm(x, None, None)
+        return grad_laid_out(layer_norm(x, None, None))
     raise ValueError(cfg.norm)
 
 

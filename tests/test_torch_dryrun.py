@@ -343,6 +343,109 @@ def test_miniature_cells_on_a_fake_world_of_8_ranks(cell, jax_shard_bytes):
         assert rec["memory"]["alias_size_in_bytes"] > 0     # the cache, written in place
 
 
+# ------------------------------------------- per-device counts against JAX's
+
+# (arch, base shape, shape overrides, mesh, axes, preset, grad_accum, config
+# overrides): MINI's train and decode cells, a cell whose model axis does
+# not divide the head count (6 query heads over 4 model ranks), and one MoE
+# cell under the default rules
+CROSS = {
+    "train": MINI["train"] + ({},),
+    "decode": MINI["decode"] + ({},),
+    "uneven_heads": ("llama3.2-3b", "train_4k", dict(seq_len=64, global_batch=8), (2, 4),
+                     ("data", "model"), "train", 1, dict(n_heads=6, n_kv_heads=2,
+                                                         d_model=192)),
+    "moe": ("kimi-k2-1t-a32b", "train_4k", dict(seq_len=64, global_batch=8), (2, 4),
+            ("data", "model"), "default", "default", {}),
+}
+
+# port / JAX per device. FLOPs: the port's counter counts the products (mm,
+# bmm, the custom ops' formulas), XLA's cost analysis also every elementwise
+# op and reduction (one a element) and its reference attention's whole
+# causal square, so at these widths XLA counts up to ~20% more; a product
+# that one side runs on whole weights where the other shards it shows as
+# 1.5x and more (the backward's products on whole weights and the
+# attention whole on every model rank read 1.55x in "moe", 1.60x in
+# "uneven_heads").
+# Collectives: both in the ring convention (result bytes, an all-reduce
+# twice), but DTensor and XLA pick different collectives for one resharding
+# (an all-gather where XLA all-reduces partial sums; XLA's all-to-all and
+# collective-permute), so a factor 2 either way (the decode cell's cache
+# of 2 kv heads, cut along head_dim over 4 model ranks, is resharded along
+# its sequence by one all-to-all, where XLA all-reduces partial scores).
+FLOPS_BAND = (0.8, 1.25)
+COLL_BAND = (0.5, 2.0)
+
+JAX_CROSS = """
+import dataclasses, json
+import jax
+from repro.launch.dryrun import (build_cell, default_grad_accum, default_rules_preset,
+                                 parse_collective_bytes)
+from repro.configs import get_config, SHAPES
+from repro.dist import compat
+from repro.dist.sharding import make_rules
+from repro.launch.mesh import make_mesh
+from repro.util import probe_mode
+out = {}
+for name, (arch, base, kw, mesh_shape, axes, preset, ga, over) in json.loads('CELLS').items():
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32", **over)
+    shape = dataclasses.replace(SHAPES[base], **kw)
+    mesh = make_mesh(tuple(mesh_shape), tuple(axes))
+    if preset == "default":
+        preset = default_rules_preset(cfg, shape)
+    if ga == "default":
+        ga = default_grad_accum(cfg, shape, mesh.shape["data"])
+    fn, args, in_sh, out_sh, donate = build_cell(cfg, shape, mesh, make_rules(preset, mesh),
+                                                 grad_accum=ga, opt_dtype="float32")
+    # every scan unrolled, as the JAX dry run's probes are: XLA's cost
+    # analysis counts a loop body once
+    with mesh, probe_mode():
+        compiled = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh,
+                           donate_argnums=donate).lower(*args).compile()
+    out[name] = {"flops": float(compat.cost_analysis(compiled).get("flops", 0.0)),
+                 "collectives": parse_collective_bytes(compiled.as_text())["total"],
+                 "preset": preset, "grad_accum": ga}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_cross_counts():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), TF_CPP_MIN_LOG_LEVEL="3",
+               JAX_PLATFORMS="cpu")
+    code = JAX_CROSS.replace("CELLS", json.dumps(CROSS))
+    out = subprocess.run([sys.executable, "-c", textwrap.dedent(code)], capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("cell", sorted(CROSS))
+def test_per_device_flops_and_collectives_against_jax_dry_run(cell, jax_cross_counts):
+    """The port's ``trace_cell`` against the JAX package's dry run of the
+    same miniature cell (``build_cell``, lowered and compiled for 8 host
+    devices with every scan unrolled; ``cost_analysis`` FLOPs and
+    ``parse_collective_bytes`` of the HLO): per-device FLOPs and collective
+    bytes within the bands stated above (``pytest -s`` prints the table)."""
+    arch, base, kw, mesh_shape, axes, _, _, over = CROSS[cell]
+    want = jax_cross_counts[cell]
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32", **over)
+    shape = _shape(base, **kw)
+    with fake_world(8):
+        mesh = make_mesh(mesh_shape, axes, device="cpu")
+        rules = make_rules(want["preset"], mesh)
+        rec = dryrun.trace_cell(cfg, shape, mesh, rules, grad_accum=want["grad_accum"],
+                                opt_dtype="float32", device="cpu")
+    flops = rec["flops_per_device"] / want["flops"]
+    coll = rec["collectives"]["total"] / want["collectives"]
+    print(f"\n{cell} ({arch}, {want['preset']}, mesh {mesh_shape}): FLOPs port "
+          f"{rec['flops_per_device']:.4g} JAX {want['flops']:.4g} ratio {flops:.3f} | "
+          f"collective bytes port {rec['collectives']['total']} JAX "
+          f"{want['collectives']:.0f} ratio {coll:.3f}")
+    assert FLOPS_BAND[0] <= flops <= FLOPS_BAND[1], (cell, flops)
+    assert COLL_BAND[0] <= coll <= COLL_BAND[1], (cell, coll)
+
+
 def test_one_rank_fake_trace_equals_a_real_cpu_step():
     """On a 1-rank world the fake trace of a reduced train cell counts the
     FLOPs ``FlopCounterMode`` counts over a real CPU step (plain path, remat

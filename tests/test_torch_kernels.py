@@ -251,6 +251,92 @@ def test_decode_split_order_merges_partials_in_chunk_order():
                                want.numpy(), atol=1e-6, rtol=0)
 
 
+# ------------------------------------------ the decode stats kernel's split order
+#
+# ``ref.decode_attention_stats_splits`` sums as the CUDA stats kernel does: f32
+# partials per split of ``ref.stats_split_span`` keys (whole 64-key tiles, at
+# most ``ref.STATS_MAX_SPLITS`` splits a row), merged in split order and left
+# unnormalised. It must give JAX's ``ref.decode_attention(...,
+# return_stats=True)``: m and l and acc of the live rows, (NEG_INF, 0, 0) for
+# a row with no key, and nothing of what lies past a row's length.
+
+
+def test_stats_split_rule():
+    assert [tref.stats_split_span(S) for S in (0, 1, 64, 100, 1024, 1025, 16384, 32768)] == \
+        [(64, 1), (64, 1), (64, 1), (64, 2), (64, 16), (128, 9), (1024, 16), (2048, 16)]
+    for S in range(0, 5000, 37):
+        span, n = tref.stats_split_span(S)
+        assert span % CHUNK == 0 and 1 <= n <= tref.STATS_MAX_SPLITS
+        assert (n - 1) * span < max(S, 1) <= n * span
+
+
+STATS_CASES = [  # B, S, Hq, Hkv, D, lengths: splits of 128 keys (9 a row) ...
+    (6, 1100, 6, 2, 32, [0, 1, 127, 128, 1000, 1100]),
+    # ... lengths past S, one split, and G = 1
+    (3, 1100, 4, 4, 16, [1101, 129, 0]),
+    (2, 100, 8, 2, 16, [100, 65]),
+]
+
+
+@pytest.mark.parametrize("case", STATS_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stats_split_order_vs_jax_with_empty_rows_and_nan_past_length(case, dtype):
+    """The port's split-order stats, fed NaN in every slot past each row's
+    length, against JAX's stats of the same cache with finite values there
+    (the JAX reference lets NaN past the length leak, ROADMAP Queue C item 1):
+    the stats may not depend on what lies past the length."""
+    B, S, Hq, Hkv, D, lengths = case
+    length = np.array(lengths, np.int32)
+    rng = np.random.default_rng(S * 7 + B)
+    (jq, jk, jv), _ = _decode_inputs(rng, B, S, Hq, Hkv, D, length, dtype,
+                                     nan_past_length=False)
+    _, (tq, tk, tv) = _decode_inputs(np.random.default_rng(S * 7 + B), B, S, Hq, Hkv, D,
+                                     length, dtype)
+    m, l, acc = tref.decode_attention_stats_splits(tq, tk, tv, torch.from_numpy(length))
+    jm, jl, ja = (np.asarray(x) for x in jref.decode_attention(
+        jq, jk, jv, jnp.asarray(length), return_stats=True))
+    assert all(torch.isfinite(x).all() for x in (m, l, acc))
+    assert m.shape == l.shape == (B, Hkv, Hq // Hkv) and acc.shape == (B, Hkv, Hq // Hkv, D)
+    empty = length == 0
+    assert torch.all(m[empty] == tref.NEG_INF) and torch.all(l[empty] == 0)
+    assert torch.all(acc[empty] == 0)
+    tol = DTYPES[dtype][2]
+    live = ~empty
+    np.testing.assert_allclose(m[live].numpy(), jm[live], atol=tol, rtol=0)
+    np.testing.assert_allclose(l[live].numpy(), jl[live], atol=tol, rtol=tol)
+    out = (acc / l[..., None].clamp_min(1e-30))[live].numpy()
+    np.testing.assert_allclose(out, (ja / np.maximum(jl, 1e-30)[..., None])[live],
+                               atol=tol, rtol=0)
+    if dtype == "float32":
+        np.testing.assert_allclose(acc.numpy(), ja, atol=tol, rtol=tol)
+
+
+def test_stats_split_order_merges_partials_in_split_order():
+    """One split: the plain version's stats themselves; several: the LSE
+    combine of each split's stats, in split order."""
+    rng = np.random.default_rng(9)
+    B, S, Hq, Hkv, D = 2, 1100, 4, 2, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    length = torch.tensor([S, 300], dtype=torch.int32)
+    one = tref.decode_attention_stats_splits(q, k[:, :CHUNK], v[:, :CHUNK], length)
+    for a, b in zip(one, tref.decode_attention(q, k[:, :CHUNK], v[:, :CHUNK], length,
+                                               return_stats=True)):
+        assert torch.equal(a, b)
+    span, n = tref.stats_split_span(S)
+    stats = [tref.decode_attention(q, k[:, s0:s0 + span], v[:, s0:s0 + span],
+                                   torch.clamp(length - s0, min=0), return_stats=True)
+             for s0 in range(0, n * span, span)]
+    M = torch.stack([m for m, _, _ in stats]).amax(0)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(stats[0][2])
+    for m, l, a in stats:
+        L = L + l * torch.exp(m - M)
+        A = A + a * torch.exp(m - M)[..., None]
+    for got, want in zip(tref.decode_attention_stats_splits(q, k, v, length), (M, L, A)):
+        assert torch.equal(got, want)
+
+
 # ------------------------------------- the decode kernels take every config's heads
 
 ATTENTION_ARCHS = [a for a in list_archs() if not jax_config(a).attention_free]

@@ -2,7 +2,8 @@
 """Time the PyTorch port's decode and paged-decode kernels on one CUDA GPU,
 for one checkout's kernels, at the paths' shapes.
 
-    python3 tools/decode_compare.py [--root DIR] [--parts] [--host] [--label NAME]
+    python3 tools/decode_compare.py [--root DIR] [--parts] [--host] [--stats]
+                                    [--label NAME]
 
 For each shape it prints one JSON line: ``device_ms`` (200 wrapper calls
 captured in one CUDA graph and replayed, no host time in it), the wrapper's
@@ -23,7 +24,12 @@ the split kernel, the merge and the launch floor can be told apart (the
 patched outputs are not results; only their times are read). ``--host``
 also times, at llama's shape, the host cost of each step of this
 checkout's decode wrapper alone (2000 calls each, the device left to run
-behind).
+behind). ``--stats`` times the decode kernel's stats entry instead, at
+phase 3m serve_seqkv's local shard (B=2, S=16,384, 24/8 heads, D=128,
+bf16), at one row of a 32,768-position shard and at 16/8 heads of D=64:
+``device_ms``, ``host_us``, ``ms``, and each of its kernels' device time per
+call from ``torch.profiler`` (the split kernel, the merge), so an unpacked
+parent's entry can be timed beside this checkout's.
 
 It needs one CUDA device and exits non-zero without one.
 """
@@ -45,6 +51,7 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=ROOT)
     ap.add_argument("--parts", action="store_true")
     ap.add_argument("--host", action="store_true")
+    ap.add_argument("--stats", action="store_true")
     ap.add_argument("--label", default=None)
     args = ap.parse_args()
     import torch
@@ -80,6 +87,21 @@ def main() -> int:
                 "library_ms": cs.time_ms(torch, library, CALLS)}
 
     rows = []
+    if args.stats:
+        for name, shape in (("serve_seqkv local", (2, 16384, 24, 8, 128)),
+                            ("one row of 32,768", (1, 32768, 24, 8, 128)),
+                            ("16/8 heads at D=64", (2, 16384, 16, 8, 64))):
+            q, k, v, n = cache(*shape)
+            entry = lambda: da.decode_attention_stats(q, k, v, n)   # noqa: E731
+            rows.append({"kernel": "decode_attention_stats", "shape": name,
+                         "device_ms": cs.graph_ms(torch, entry),
+                         "host_us": cs.host_us(torch, entry),
+                         "ms": cs.time_ms(torch, entry, CALLS),
+                         "parts_device_ms": cs.kernel_parts_ms(torch, entry)})
+            del q, k, v
+        for r in rows:
+            print(json.dumps({"label": label, "card": card, **r}), flush=True)
+        return 0
     contiguous = {"llama": cache(4, 528, 24, 8, 128), "jamba": cache(4, 528, 64, 8, 128)}
     for name, (q, k, v, n) in contiguous.items():
         S = k.shape[1]
