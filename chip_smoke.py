@@ -19,13 +19,16 @@ the script exits non-zero:
    flash, mLSTM, decode and paged decode kernels; then AOTInductor's
    toolchain: Triton's version and a host compiler that links an OpenMP
    shared object (``inductor_toolchain``). Every deploy of the run compiles
-   its serve-path programs (the serve program, its head/tail split, the
-   bucket programs) with AOTInductor through one compile cache under the
-   run's work directory (``enable_inductor_disk_cache``); every path's
-   launches are those of its compiled program (``compiled_launches``).
-   Before phase 1's kernel build, a background build (``chip_smoke.py
-   --precompile``, ``EARLY_GROUPS``) compiles phase 3's llama programs into
-   that cache beside phases 1 and 2. From phase 3 on, two more
+   its programs (the serve program, its head/tail split, the bucket
+   programs, the decode bundle's admit and step programs) with AOTInductor
+   through one compile cache under the run's work directory
+   (``enable_inductor_disk_cache``); every path's launches are those of its
+   compiled program (``compiled_launches``).
+   Before phase 1's kernel build, two background builds (``chip_smoke.py
+   --precompile``, ``EARLY_GROUPS``) compile phase 3's llama programs into
+   that cache beside phases 1 and 2: one its serve, head and tail programs,
+   the other its decode bundle's admit and step programs at phase 3b's
+   geometry (``DECODE_BUILDS``). From phase 3 on, two more
    (``PRECOMPILE_GROUPS``) compile the serve, head and tail programs of the
    deploys of phases 3g, 3c and 3d from their shapes into that cache
    (``repro_torch.core.deploy.precompile``), beside phases 3-3f; those
@@ -92,16 +95,22 @@ the script exits non-zero:
    and the plain path's, on the snapshot's weights, against the plain path
    in float32.
 3b. Decode tier, on phase 3's gateway: the decode scheduler ``gw.deploy``
-   built (``ensure_decode(slots=8, page_size=16)``: export, save, load,
-   verify the admit and step programs) serves 12 requests of 512 prompt
+   built (``ensure_decode(slots=8, page_size=16)``: export, compile (read
+   back from the early build), save, load, verify the admit and step
+   AOTInductor packages; the deploy-time gate's comparison with the eager
+   programs is logged) serves 12 requests of 512 prompt
    tokens submitted in one burst through ``gw.invoke_decode_async``,
    budgets cycling through 16, 3, 7, 16, 1, 5; then the decode loop closes;
    checks every budget and ``gw.decode_summary``, one boot and one
    cool-down, and launches (flash = L x admits, paged = L x steps, no
-   contiguous decode); then holds one admit call (its logits and the K/V it
-   wrote) and one step call, each replayed on clones of the pool it saw
-   mid-run, kernel route and plain route, against the plain route in
-   float32.
+   contiguous decode); logs the admit and step ms per call beside the
+   exported programs' (5.62 / 3.33 ms); then holds one admit call (its logits and
+   the K/V it wrote) and one step call, each replayed on clones of the pool
+   it saw mid-run, kernel route and plain route, against the plain route in
+   float32; then checks that both loaded programs write the caller's pools
+   in place: the pools change, the returned pools are the same tensors, a
+   step allocates less than one layer's pool, and no allocation of either
+   program has the size of a layer's pool or the whole pool.
 3e. Driver taxonomy, on phase 3's gateway and deployment (no second
    deploy; the deployment's head/tail split must be verified,
    ``split_ok``): each driver of ``ALL_DRIVERS`` (process, fork, unikernel,
@@ -1003,7 +1012,13 @@ CAPTURE_STEP = 4                    # the step whose inputs the numeric gate rep
 CAPTURE_ADMIT = 8                   # the admit it replays: a backfill beside live rows
 
 
-def decode_tier(torch, gw, dep) -> dict:
+# the ms per call of the admit and step programs when they were stored as
+# torch.export programs (NVIDIA H100 80GB HBM3, 700 W), logged beside the
+# compiled ones'
+EXPORTED_ADMIT_MS, EXPORTED_STEP_MS = 5.62, 3.33
+
+
+def decode_tier(torch, gw, dep, smi: str) -> dict:
     """Phase 3b: the continuous-batching decode tier at full width, the
     decode scheduler that ``gw.deploy`` built for ``dep``, fed through
     ``gw.invoke_decode_async``; ends by closing the decode loop (the gateway
@@ -1025,6 +1040,8 @@ def decode_tier(torch, gw, dep) -> dict:
         " ".join(f"{k} {v:.2f}" for k, v in bundle.build_s.items()) +
         f"] | slots {bundle.slots} page_size {bundle.page_size} max_pages "
         f"{bundle.max_pages} n_pages {bundle.n_pages} | pools {pool_gb:.3f} GB")
+    for kind, g in bundle.gate.items():
+        log(f"ensure_decode gate, {kind} package vs the eager program: " + json.dumps(g))
 
     # Observe the bundle's two programs without changing them: each call's
     # device-synchronised wall time, and a copy of the inputs and logits of
@@ -1082,6 +1099,10 @@ def decode_tier(torch, gw, dep) -> dict:
         f"{s['occupancy']:.3f} | pages high-water {int(s['pages_high_water'])} of "
         f"{bundle.n_pages - 1} | admit waits {int(s['admit_waits'])} | boots {int(s['boots'])} "
         f"cooldowns {int(s['cooldowns'])} | launches {launches}")
+    log(f"decode programs (AOTInductor packages): admit "
+        f"{1e3 * admit_s / max(len(calls['admit']), 1):.3f} ms, step "
+        f"{1e3 * step_s / max(len(calls['step']), 1):.3f} ms per call (the exported programs, "
+        f"{EXPORTED_ADMIT_MS} / {EXPORTED_STEP_MS} ms) | {smi}")
     for i, (b, out) in enumerate(zip(budgets, outs)):
         if out.shape != (b,) or out.dtype != np.int32 or not ((out >= 0) &
                                                               (out < cfg.vocab_size)).all():
@@ -1171,7 +1192,47 @@ def decode_tier(torch, gw, dep) -> dict:
         if not (g["finite"] and all(k <= 2.0 * p for k, p in zip(g["err_k"], g["err_p"]))):
             raise AssertionError(f"kernel route's decode {kind} outputs are less accurate than "
                                  "the plain route's")
+    decode_in_place(torch, bundle, params, {"admit": (tokens_a, kp_a, vp_a, ids),
+                                            "step": (kp, vp, table, pos, tok)})
     return launches
+
+
+def decode_in_place(torch, bundle, params, args: dict) -> None:
+    """Each loaded decode program, on clones of the pools of its captured
+    call, writes the caller's pools in place: the pools change, the returned
+    pools are the same tensors, a step allocates less than one layer's pool
+    (the peak over the call), and no allocation of either program (from
+    ``torch.profiler``'s memory events) has the size of one layer's pool or
+    of the whole pool, as a copy written back would."""
+    from torch.profiler import ProfilerActivity, profile
+    for kind, program in (("admit", bundle.admit), ("step", bundle.step)):
+        got = list(args[kind])
+        at = 1 if kind == "admit" else 0
+        k0, v0 = got[at], got[at + 1]
+        k, v = k0.clone(), v0.clone()
+        got[at:at + 2] = k, v
+        layer_b, pool_b = k[0].numel() * k.element_size(), k.numel() * k.element_size()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU],
+                                             profile_memory=True) as prof:
+            _, k2, v2 = program(params, *got)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        sizes = [e.device_memory_usage for e in prof.events()
+                 if getattr(e, "device_memory_usage", 0) > 0]
+        same = k2.data_ptr() == k.data_ptr() and v2.data_ptr() == v.data_ptr()
+        changed = not torch.equal(k, k0) and not torch.equal(v, v0)
+        copies = [b for b in sizes if b in (layer_b, pool_b)]
+        log(f"decode {kind} package in place: pools written {changed} | returned pools share "
+            f"the inputs' storage {same} | peak allocation over the call {peak} B against one "
+            f"layer's pool {layer_b} B (the whole pool {pool_b} B) | device allocations "
+            f"{len(sizes) if sizes else 'not measured'}, largest "
+            f"{max(sizes) if sizes else 'not measured'} B, of a pool's size {len(copies)}")
+        if not (same and changed and not copies and (kind == "admit" or peak < layer_b)):
+            raise AssertionError(f"the decode {kind} package does not write the caller's pools "
+                                 "in place")
 
 
 # ------------------------------------------------------------- phases 3 and 3c
@@ -1503,12 +1564,17 @@ def gateway_path(torch, spec, work):
                                      max_new=DECODE_MAX_NEW),
                  work_dir=str(work))
     t0 = time.perf_counter()
+    lookups = dict(compile_cache.counters())
     dep = gw.deploy(spec)
+    # the early build's packages: serve, head, tail, decode admit and step
+    lookups = {k.replace("aoti_package_cache_", "package "): v - lookups.get(k, 0)
+               for k, v in compile_cache.counters().items() if v - lookups.get(k, 0)}
     m, cfg, name, key = dep.image.manifest, dep.model.cfg, dep.name, dep.image.key
     blobs = gw.blobs.stats()
     log(f"deploy {name} through the Gateway: {time.perf_counter() - t0:.1f} s (decode bundle "
         f"included) [" + " ".join(f"{k} {v:.2f}" for k, v in dep.build_s.items()) +
-        f"] | {m.param_count} params | program {m.program_bytes} B | v2 snapshot "
+        f"] | cache lookups {lookups} (serve, head, tail, decode admit and step) | "
+        f"{m.param_count} params | program {m.program_bytes} B | v2 snapshot "
         f"{m.snapshot_bytes} B in {m.extra['snapshot_chunks']} chunks of "
         f"{m.extra['chunk_bytes']} B (store: {int(blobs['chunks'])} chunks, "
         f"{int(blobs['bytes'])} B, {int(blobs['dedup_hits'])} dedup hits) | split_ok "
@@ -3516,10 +3582,15 @@ def dryrun_main(work: str) -> int:
 # packages back from the shared compiled-package cache (or waits on a
 # package's lock while its build is still compiling it).
 PRECOMPILE_GROUPS = (("kimi-k2-1t-a32b:2L16E", JAMBA_ARCH), ("qwen2-vl-2b:2L", XLSTM_ARCH))
-# phase 3's llama programs compile in a build of their own, started before
-# phase 1's kernel build, so that their compile runs beside phases 1 and 2;
-# phase 3's deploy reads them back (or waits on their locks)
-EARLY_GROUPS = ((LLAMA_ARCH,),)
+# phase 3's llama programs compile in builds of their own, started before
+# phase 1's kernel build, so that their compiles run beside phases 1 and 2;
+# phase 3's deploy reads them back (or waits on their locks). The decode
+# bundle's admit and step programs at phase 3b's geometry (``DECODE_BUILDS``)
+# build beside the serve, head and tail programs, not after them: after them,
+# the build ended up to 81 s into phase 3, whose deploy waited on it
+DECODE = "decode:"                  # a build entry: the decode bundle of the arch after it
+EARLY_GROUPS = ((LLAMA_ARCH,), (DECODE + LLAMA_ARCH,))
+DECODE_BUILDS = {LLAMA_ARCH: (DECODE_SLOTS, PAGE_SIZE)}
 BUILD_TIMEOUT_S = 600               # how long the end of the run waits for a build
 
 
@@ -3587,11 +3658,32 @@ def finish_builds(builds, t_run: float) -> None:
                                f"{len(group)} specs:\n" + path.read_text()[-4000:])
 
 
+def precompile_decode(spec, decode, device="cuda") -> dict:
+    """Compile the decode bundle's admit and step programs of ``spec`` alone,
+    as ``deploy.precompile(spec, device, decode)`` compiles them (the serve,
+    head and tail programs it yields first are traced, not compiled);
+    returns seconds by ``<kind>_trace`` and ``<kind>_compile``."""
+    from repro_torch.core.compile_cache import build_slot, compile_package
+    from repro_torch.core.deploy import trace_on_fakes
+    times: dict = {}
+    t = time.perf_counter()
+    with build_slot():
+        for kind, exported in trace_on_fakes(spec, device, decode):
+            if kind.startswith("decode_"):
+                times[f"{kind}_trace"] = time.perf_counter() - t
+                t = time.perf_counter()
+                compile_package(exported)
+                times[f"{kind}_compile"] = time.perf_counter() - t
+            t = time.perf_counter()
+    return times
+
+
 def precompile_main(names) -> int:
     """``chip_smoke.py --precompile ARCH...``: compile each named spec of
-    :func:`deployed_specs` into the compiled-package cache that
-    ``TORCHINDUCTOR_CACHE_DIR`` names, under the run's settings (TF32 off,
-    the same host compiler), and print one JSON line per spec."""
+    :func:`deployed_specs` (a name ``decode:ARCH``: its decode bundle at the
+    geometry ``DECODE_BUILDS`` gives, alone) into the compiled-package cache
+    that ``TORCHINDUCTOR_CACHE_DIR`` names, under the run's settings (TF32
+    off, the same host compiler), and print one JSON line per name."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -3607,7 +3699,11 @@ def precompile_main(names) -> int:
     specs = deployed_specs()
     for name in names:
         before = dict(compile_cache.counters())
-        times = precompile(specs[name], "cuda")
+        if name.startswith(DECODE):
+            arch = name[len(DECODE):]
+            times = precompile_decode(specs[arch], DECODE_BUILDS[arch])
+        else:
+            times = precompile(specs[name], "cuda")
         lookups = {k.replace("aoti_package_cache_", "package "): v - before.get(k, 0)
                    for k, v in compile_cache.counters().items() if v - before.get(k, 0)}
         print(json.dumps({"precompiled": name, "t_s": time.perf_counter() - t0,
@@ -3937,7 +4033,7 @@ def main(mesh_only=False):
         gw, dep, launches, first_tokens = gateway_path(torch, SPEC, work / "llama")
         phase_done("phase 3")
         # ---- phase 3b: the decode tier on the same deployment, same Gateway
-        launches_3b = decode_tier(torch, gw, dep)
+        launches_3b = decode_tier(torch, gw, dep, smi)
         phase_done("phase 3b")
         # ---- phase 3e: every driver on the same deployment, then warm mode
         launches_3e = driver_taxonomy(torch, gw, dep, first_tokens, inductor_cache)

@@ -1,25 +1,24 @@
 """Persistent program store — the "image registry" of unikernel executors.
 
-Port of ``repro.core.compile_cache``. The image's serve-path programs (the
-fused serve program, its head/tail split, the coalescer's bucket programs)
-are compiled ahead of time at deploy with AOTInductor into ``.pt2``
-packages (:func:`compile_package`), as the JAX package ships an executable
-compiled by ``jax.jit(...).lower(...).compile()``: shape-specialised,
-weight-free (the parameters are an input, as in ``serve(params, tokens)``),
-and loaded at boot with ``aoti_load_package`` into compiled code, with no
-trace and no compile. The hand-written kernels stay opaque calls of the
+Port of ``repro.core.compile_cache``. Every program of the image (the
+fused serve program, its head/tail split, the coalescer's bucket programs,
+the decode bundle's admit and step programs) is compiled ahead of time at
+deploy with AOTInductor into a ``.pt2`` package (:func:`compile_package`),
+as the JAX package ships an executable compiled by
+``jax.jit(...).lower(...).compile()``: shape-specialised, weight-free (the
+parameters are an input, as in ``serve(params, tokens)``), and loaded at
+boot with ``aoti_load_package`` into compiled code, with no trace and no
+compile. The hand-written kernels stay opaque calls of the
 ``repro_torch::*`` custom ops inside the packages; Inductor generates code
-for the glue around them only. The decode bundle's admit and step programs
-are still stored as ``torch.export`` programs (``put_program``), run by
-``ExportedProgram.module()``.
+for the glue around them only.
 
-Every stored payload starts with a tag line naming its format
-(:data:`AOTI` or :data:`TORCH_EXPORT`), and ``deserialize_program`` loads by
-the tag; a payload without one is refused.
+Every stored payload starts with a tag line naming its format (:data:`AOTI`,
+the only one), and ``deserialize_program`` loads by the tag; a payload
+without one, or with another format's, is refused.
 
 Layout on disk (content-addressed by FunctionSpec.cache_key):
 
-    <root>/<key>/program.bin     tag line + the .pt2 package or torch.export.save bytes
+    <root>/<key>/program.bin     tag line + the .pt2 package
     <root>/<key>/manifest.json   ImageManifest
 
 Compiled-package cache: :func:`compile_package` keeps each package it builds
@@ -34,7 +33,7 @@ Inductor's settings: on by default, off when ``fx_graph_cache`` is off or
 in ``torch._dynamo.utils.counters["repro_torch"]`` (``aoti_package_cache_hit``
 / ``_miss`` / ``_disabled``).
 
-Invariants: ``put_program`` and ``put_package`` publish atomically (a
+Invariants: ``put_package`` publishes atomically (a
 concurrent reader sees the old blob or the new one, never a torn write);
 payload bytes are immutable once published under a key (the host program
 tier and peer transfers hand the same bytes on). The custom ops the programs
@@ -52,7 +51,6 @@ import os
 import shutil
 import threading
 import time
-import typing
 import zipfile
 from pathlib import Path
 from typing import Callable, Dict, List, Tuple
@@ -88,9 +86,8 @@ def decode_step_key(key: str) -> str:
     return key + DECODE_STEP_SUFFIX
 
 
-# Payload formats, named by the tag line each stored payload starts with.
+# The payload format, named by the tag line each stored payload starts with.
 AOTI = "aoti"                       # an AOTInductor .pt2 package
-TORCH_EXPORT = "torch.export"       # torch.export.save of an ExportedProgram
 _TAG = b"repro_torch program "
 
 # Inductor options of every AOT compile: keep eager's roundings of
@@ -120,7 +117,7 @@ def payload_format(payload: bytes) -> Tuple[str, int]:
     if not head.startswith(_TAG) or end < 0:
         raise ValueError("program payload has no format tag")
     fmt = head[len(_TAG):end].decode()
-    if fmt not in (AOTI, TORCH_EXPORT):
+    if fmt != AOTI:
         raise ValueError(f"unknown program format {fmt!r}")
     return fmt, end + 1
 
@@ -353,37 +350,6 @@ class CompiledProgram:
             return self._model(*args, **kwargs)
 
 
-_HINTS_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def _memoized_type_hints():
-    """``torch.export.load`` decodes the program's JSON into dataclasses and
-    calls ``typing.get_type_hints`` once per decoded object — tens of
-    thousands of identical calls for an unrolled serve program, about half of
-    the load. The answer depends on the arguments alone, so memoize it while
-    a load runs (one load at a time; the original is restored after)."""
-    with _HINTS_LOCK:
-        original = typing.get_type_hints
-        memo: dict = {}
-
-        def hints(obj, globalns=None, localns=None, include_extras=False):
-            key = (obj, id(globalns), id(localns), include_extras)
-            try:
-                return memo[key]
-            except KeyError:
-                memo[key] = original(obj, globalns, localns, include_extras)
-                return memo[key]
-            except TypeError:                       # unhashable obj
-                return original(obj, globalns, localns, include_extras)
-
-        typing.get_type_hints = hints
-        try:
-            yield
-        finally:
-            typing.get_type_hints = original
-
-
 class CompileCache:
     def __init__(self, root: str | Path) -> None:
         self.root = Path(root)
@@ -416,14 +382,8 @@ class CompileCache:
         returns the stored size in bytes."""
         return self._publish(key, _tagged(AOTI, package))
 
-    def put_program(self, key: str, exported: torch.export.ExportedProgram) -> int:
-        """Serialize an ExportedProgram; returns the stored size in bytes."""
-        buf = io.BytesIO()
-        torch.export.save(exported, buf)
-        return self._publish(key, _tagged(TORCH_EXPORT, buf.getvalue()))
-
     def program_format(self, key: str) -> str:
-        """The stored program's format: :data:`AOTI` or :data:`TORCH_EXPORT`."""
+        """The stored program's format (:data:`AOTI`)."""
         with open(self.program_path(key), "rb") as f:
             return payload_format(f.read(64))[0]
 
@@ -434,16 +394,10 @@ class CompileCache:
     @staticmethod
     def deserialize_program(payload: bytes) -> Callable:
         """Payload -> runnable program (the boot pipeline's
-        DeserializeProgram), by the payload's format tag: an AOTI package
-        loads into its compiled code, a ``torch.export`` program into
-        ``ExportedProgram.module()``."""
-        fmt, n = payload_format(payload)
-        body = memoryview(payload)[n:]
-        if fmt == AOTI:
-            return CompileCache.load_package(body)
-        with _memoized_type_hints():
-            exported = torch.export.load(io.BytesIO(body))
-        return exported.module()
+        DeserializeProgram): an AOTI package loads into its compiled code;
+        a payload with no format tag, or another format's, raises."""
+        _, n = payload_format(payload)
+        return CompileCache.load_package(memoryview(payload)[n:])
 
     @staticmethod
     def load_package(package) -> Callable:

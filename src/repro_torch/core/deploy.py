@@ -25,10 +25,11 @@
 
 ``Deployment.ensure_decode`` builds the continuous-batching decode bundle
 (the admit and step programs of :mod:`repro_torch.core.decode`) once per
-deployment, under the same export -> save -> load -> verify rule; its two
-programs are stored as ``torch.export`` programs, not compiled. Each
-program is stored in the format :data:`PROGRAM_FORMATS` gives its kind
-(``_publish``), and the manifest's ``program_formats`` is that table.
+deployment, under the same export -> compile -> save -> load -> verify
+rule. The loaded programs write the caller's page pools in place and return
+those same tensors; the verify step holds them to the eager programs
+(:func:`_decode_gate`). Every program is stored as an AOTInductor package
+(``_publish``).
 ``Deployment.ensure_generic`` writes the generic checkpoint of the cold_jit
 drivers once per deployment, when the first such boot plans (the JAX package
 writes it in ``deploy``; at jamba's size it is a 65 GB float32 file, so the
@@ -42,11 +43,12 @@ several, restoring the snapshot's weights to the device once for all. The JAX pa
 in-process fallback for a bucket its loader refuses is not ported: a bucket
 that fails to export, compile, load or verify raises.
 
-``precompile`` compiles a spec's serve, head and tail programs into the
-compiled-package cache before it is deployed, traced on fake tensors
-(``trace_on_fakes``): a build process can fill the cache while another
-process serves, and the later ``deploy`` reads the packages back and
-verifies them under the rules above.
+``precompile`` compiles a spec's serve, head and tail programs, and with a
+decode geometry its admit and step programs, into the compiled-package cache
+before it is deployed, traced on fake tensors (``trace_on_fakes``): a build
+process can fill the cache while another process serves, and the later
+``deploy`` and ``ensure_decode`` read the packages back and verify them
+under the rules above.
 """
 from __future__ import annotations
 
@@ -66,13 +68,14 @@ from repro_torch.configs import get_config
 from repro_torch.core.artifact import ExecutorImage, FunctionSpec, ImageManifest
 from repro_torch.core.boot import fake_inputs, streamed_device_put
 from repro_torch.core.compile_cache import (
-    AOTI, TORCH_EXPORT, CompileCache, aoti_package_key_parts, build_slot, compile_package,
-    decode_admit_key, decode_step_key, head_key, slim, tail_key,
+    AOTI, CompileCache, aoti_package_key_parts, build_slot, compile_package, decode_admit_key,
+    decode_step_key, head_key, slim, tail_key,
 )
 from repro_torch.core.executor import synchronize
 from repro_torch.core.metrics import now
 from repro_torch.core.scheduler import program_artifact_key
 from repro_torch.core.snapshot import SnapshotStore, save_generic_checkpoint
+from repro_torch.dtypes import torch_dtype
 from repro_torch.models import build_model
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import split_cache, split_layers
@@ -183,23 +186,14 @@ _VIEW_OPS = {
 }
 
 
-# The format each kind of program is stored in: the serve path's programs are
-# AOTInductor packages; the decode bundle's admit and step programs stay
-# ``torch.export`` programs (their in-place pool writes are not compiled yet).
-PROGRAM_FORMATS = {"serve": AOTI, "head": AOTI, "tail": AOTI, "bucket": AOTI,
-                   "decode_admit": TORCH_EXPORT, "decode_step": TORCH_EXPORT}
-
-
-def _publish(cache: CompileCache, kind: str, key: str, exported, lap=None) -> int:
-    """Store ``exported`` under ``key`` in the format of ``kind``: compiled
-    into a package (``lap("compile")`` after the compile, when given), or
-    slimmed and saved. Returns the payload's bytes."""
-    if PROGRAM_FORMATS[kind] == AOTI:
-        package = compile_package(exported)
-        if lap is not None:
-            lap("compile")
-        return cache.put_package(key, package)
-    return cache.put_program(key, slim(exported))
+def _publish(cache: CompileCache, key: str, exported, lap=None) -> int:
+    """Compile ``exported`` into an AOTInductor package (``lap("compile")``
+    after the compile, when given) and store it under ``key``. Returns the
+    payload's bytes."""
+    package = compile_package(exported)
+    if lap is not None:
+        lap("compile")
+    return cache.put_package(key, package)
 
 
 def _keystr(path) -> str:
@@ -336,6 +330,147 @@ class DecodeBundle:
     admit: Callable                # (params, tokens[1,S], k, v, ids) -> (logits[V], k, v)
     step: Callable                 # (params, k, v, table, pos, tok) -> (logits[B,V], k, v)
     build_s: Dict[str, float] = dataclasses.field(default_factory=dict)  # seconds by stage
+    # the deploy-time gate's comparison of each loaded program with the eager
+    # one, by program ("admit", "step"): see _decode_gate
+    gate: Dict[str, dict] = dataclasses.field(default_factory=dict)
+
+
+def decode_geometry(spec: FunctionSpec, slots: int, page_size: int,
+                    max_pages: Optional[int] = None,
+                    n_pages: Optional[int] = None) -> Tuple[int, int]:
+    """``(max_pages, n_pages)`` of a decode bundle, defaulted as the JAX
+    package's ``ensure_decode`` defaults them: ``max_pages`` covers the
+    spec's worst case (prompt + decode budget), ``n_pages`` gives every slot
+    a full reservation plus the null page."""
+    if max_pages is None:
+        max_pages = -(-(spec.prompt_len + spec.decode_steps) // page_size)
+    if n_pages is None:
+        n_pages = 1 + slots * max_pages
+    return max_pages, n_pages
+
+
+def _decode_inputs(model: Model, prompt_len: int, slots: int, page_size: int,
+                   max_pages: int, n_pages: int, device):
+    """The inputs, but the parameters, that the admit and step programs are
+    traced and verified on: ``(admit_args, step_args)``; call it inside a
+    ``FakeTensorMode`` for their shapes alone. Zero pools; the admit's chain
+    takes pages 1, 2, ... (the null page past the pool's end); the step's slot
+    0 holds that chain at the prompt's end, and the other slots are empty."""
+    pools = {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+             for k, s in model.page_pool_specs(n_pages, page_size).items()}
+    kp, vp = pools["k_pages"], pools["v_pages"]
+    tok1 = torch.zeros((1, prompt_len), dtype=torch.int32, device=device)
+    chain = torch.arange(1, max_pages + 1, dtype=torch.int32, device=device)
+    chain = chain * (chain < n_pages)
+    table = torch.zeros((slots, max_pages), dtype=torch.int32, device=device)
+    table[0] = chain
+    pos = torch.zeros((slots,), dtype=torch.int32, device=device)
+    pos[0] = prompt_len
+    tok = torch.ones((slots, 1), dtype=torch.int32, device=device)
+    return (tok1, kp, vp, chain), (kp, vp, table, pos, tok)
+
+
+def _rel_l2(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((a.float() - ref).norm() / ref.norm())
+
+
+def _decode_gate(name: str, model: Model, params, admit_args, step_args, programs: dict,
+                 page_size: int) -> Dict[str, dict]:
+    """Hold the loaded admit and step programs (``programs``: kind ->
+    (loaded, eager)) to the eager ones on the probe inputs; raise if one
+    fails, else return the comparison by kind.
+
+    Each program runs on its own clones of one input pool (the step's: the
+    pools one eager admit filled). The loaded program must write those
+    clones in place and return them, not copies (``in_place``). Its logits
+    and every page but the null page (which takes the empty slots' writes in
+    no fixed order) are compared with the eager program's: the largest
+    difference and the count of differing elements of the logits and of the
+    pages. Equal bit for bit passes. Otherwise the rule the serve path holds
+    a compiled program to: the greedy token of the live rows equals the
+    eager one, and the logits and the K and V the program wrote (the admit's
+    chain, the step's one row) are no farther from the float32 program on
+    the plain route (rel_l2) than twice the eager bfloat16 program is; and
+    every other page but the null page, which neither program may write, is
+    equal to the eager program's bit for bit (``untouched_equal``).
+    """
+    from repro_torch.kernels import ops
+    tok1, kp0, vp0, chain = admit_args
+    _, _, table, pos, tok = step_args
+    p0 = int(pos[0])
+    # the (page, offset) index of what each program writes but the null page
+    rows = {"admit": (chain[chain > 0].long(),),
+            "step": (int(table[0, p0 // page_size]), p0 % page_size)}
+    admit_eager = programs["admit"][1]
+    runs = {"admit": lambda fn, prm, k, v: fn(prm, tok1, k, v, chain),
+            "step": lambda fn, prm, k, v: fn(prm, k, v, table, pos, tok)}
+    live = {"admit": lambda lg: lg, "step": lambda lg: lg[0]}
+    with torch.inference_mode():
+        filled = admit_eager(params, tok1, kp0.clone(), vp0.clone(), chain)[1:]
+    pools = {"admit": (kp0, vp0), "step": filled}
+    variants: dict = {}
+
+    def variant(dtype: str):
+        """The eager admit and step programs of ``model`` in ``dtype``, and
+        the parameters cast to it."""
+        if dtype not in variants:
+            m = build_model(dataclasses.replace(model.cfg, dtype=dtype), model.max_seq)
+            cast = pytree.tree_map(lambda t: t.to(torch_dtype(dtype)), params)
+            variants[dtype] = ({"admit": make_admit_fn(m, admit_eager.max_pages, page_size),
+                                "step": make_step_fn(m)}, cast)
+        return variants[dtype]
+
+    gate: Dict[str, dict] = {}
+    for kind, (saved, eager) in programs.items():
+        run, (k0, v0) = runs[kind], pools[kind]
+        ins = [(k0.clone(), v0.clone()) for _ in range(2)]
+        with torch.inference_mode():
+            (lc, kc, vc), (le, ke, ve) = [run(fn, params, k, v)
+                                          for fn, (k, v) in zip((saved, eager), ins)]
+        synchronize(k0.device)
+        g: dict = {"in_place": kc.data_ptr() == ins[0][0].data_ptr()
+                   and vc.data_ptr() == ins[0][1].data_ptr()
+                   and not torch.equal(ins[0][0], k0)}
+        if not g["in_place"]:
+            raise RuntimeError(f"ensure_decode {name}: the saved {type(eager).__name__} does not "
+                               "write the caller's pools in place")
+        pairs = {"logits": (lc, le), "pages": (torch.stack((kc[:, 1:], vc[:, 1:])),
+                                               torch.stack((ke[:, 1:], ve[:, 1:])))}
+        g["equal"] = all(torch.equal(a, b) for a, b in pairs.values())
+        for what, (a, b) in pairs.items():
+            d = (a.float() - b.float()).abs()
+            g[f"{what}_max_diff"], g[f"{what}_n_diff"] = float(d.max()), int((d > 0).sum())
+        if not g["equal"]:
+            progs32, params32 = variant("float32")
+            with torch.inference_mode(), ops.impl_scope("plain"):
+                l32, k32, v32 = run(progs32[kind], params32, k0.float(), v0.float())
+            if model.cfg.dtype == "bfloat16":
+                lb, kb, vb = le, ke, ve
+            else:
+                progs16, params16 = variant("bfloat16")
+                with torch.inference_mode():
+                    lb, kb, vb = run(progs16[kind], params16, k0.to(torch.bfloat16),
+                                     v0.to(torch.bfloat16))
+            g["argmax_equal"] = bool(torch.equal(live[kind](lc).float().argmax(-1),
+                                                 live[kind](le).float().argmax(-1)))
+            at = (slice(None),) + rows[kind]
+            ref = {"logits": (live[kind](lc), live[kind](lb), live[kind](l32).float()),
+                   "k": (kc[at], kb[at], k32[at]), "v": (vc[at], vb[at], v32[at])}
+            g["rel_l2"] = {what: (_rel_l2(c, r), _rel_l2(b, r))
+                           for what, (c, b, r) in ref.items()}
+            untouched = torch.ones(kc.shape[1:3], dtype=torch.bool, device=kc.device)
+            untouched[0] = False
+            untouched[rows[kind]] = False
+            g["untouched_equal"] = all(torch.equal(a[:, untouched], b[:, untouched])
+                                       for a, b in ((kc, ke), (vc, ve)))
+            if not (g["argmax_equal"] and g["untouched_equal"]
+                    and all(c <= 2.0 * b for c, b in g["rel_l2"].values())):
+                raise RuntimeError(
+                    f"ensure_decode {name}: the saved {type(eager).__name__}'s logits or pools "
+                    f"differ from the eager program's on probe inputs beyond the compiled "
+                    f"programs' rule: {g}")
+        gate[kind] = g
+    return gate
 
 
 @dataclasses.dataclass
@@ -443,7 +578,7 @@ class Deployment:
         fn = make_serve_fn(self.model, self.spec)
         exported = torch.export.export(fn, (params, probe))
         lap("export")
-        _publish(self.cache, "bucket", key, exported, lap)
+        _publish(self.cache, key, exported, lap)
         del exported
         lap("save")
         program = self.cache.load_program(key)
@@ -510,23 +645,23 @@ class Deployment:
                                         self.snapshots.iter_host_leaves(self.image.key))
             return self.generic_ckpt
 
-    def ensure_decode(self, slots: int, page_size: int) -> DecodeBundle:
+    def ensure_decode(self, slots: int, page_size: int, max_pages: Optional[int] = None,
+                      n_pages: Optional[int] = None) -> DecodeBundle:
         """Build, save and load the continuous-batching decode bundle.
 
         Two programs, once per deployment: admit (prefill one request into its
         reserved pages, yielding its first token) and step (one token for
         every resident slot). Both are fixed shape — ``slots`` rows, a
         ``[slots, max_pages]`` page table, a pool of ``n_pages`` pages — so no
-        request pays a trace. Each is exported with ``torch.export``, slimmed,
-        saved under its derived key, loaded back, and run once beside the eager
-        program on probe inputs, each on its own clone of a zero pool; a
-        difference in logits or in any page but the null page raises.
-        ``max_pages`` covers the spec's worst case (prompt + decode budget),
-        and ``n_pages`` gives every slot a full reservation plus the null
-        page. Later calls return the first bundle, whatever they ask for.
+        request pays a trace. Each is exported with ``torch.export``, compiled
+        with AOTInductor, saved under its derived key, loaded back, and held
+        to the eager program on probe inputs (:func:`_decode_gate`); a
+        program that fails to compile, load or pass raises, and nothing is
+        installed. ``max_pages`` and ``n_pages`` default as in the JAX
+        package (:func:`decode_geometry`). Later calls return the first
+        bundle, whatever they ask for.
         """
-        max_pages = -(-(self.spec.prompt_len + self.spec.decode_steps) // page_size)
-        n_pages = 1 + slots * max_pages
+        max_pages, n_pages = decode_geometry(self.spec, slots, page_size, max_pages, n_pages)
         with self._decode_lock:
             if self._decode_bundle is None:
                 self._decode_bundle = self._build_decode(slots, page_size, max_pages, n_pages)
@@ -543,56 +678,33 @@ class Deployment:
             times[stage] = t1 - t
             t = t1
 
-        dev, model, S = self.device, self.model, self.spec.prompt_len
-        params = streamed_device_put(self.snapshots.load_host(self.image.key), dev)
-        pools = model.init_page_pool(n_pages, page_size, dev)
-        kp, vp = pools["k_pages"], pools["v_pages"]
-        tok1 = torch.zeros((1, S), dtype=torch.int32, device=dev)
-        chain = torch.arange(1, max_pages + 1, dtype=torch.int32, device=dev)
-        table = torch.zeros((slots, max_pages), dtype=torch.int32, device=dev)
-        table[0] = chain
-        pos = torch.zeros((slots,), dtype=torch.int32, device=dev)
-        pos[0] = S
-        tok = torch.ones((slots, 1), dtype=torch.int32, device=dev)
-        admit_args = (tok1, kp, vp, chain)
-        step_args = (kp, vp, table, pos, tok)
+        dev, model, key = self.device, self.model, self.image.key
+        params = streamed_device_put(self.snapshots.load_host(key), dev)
+        admit_args, step_args = _decode_inputs(model, self.spec.prompt_len, slots, page_size,
+                                               max_pages, n_pages, dev)
         admit_fn = make_admit_fn(model, max_pages, page_size)
         step_fn = make_step_fn(model)
+        keys = (decode_admit_key(key), decode_step_key(key))
         lap("restore")
-        admit_x = torch.export.export(admit_fn, (params,) + admit_args)
-        step_x = torch.export.export(step_fn, (params,) + step_args)
+        exported = [torch.export.export(admit_fn, (params,) + admit_args),
+                    torch.export.export(step_fn, (params,) + step_args)]
         lap("export")
-        key = self.image.key
-        _publish(self.cache, "decode_admit", decode_admit_key(key), admit_x)
-        _publish(self.cache, "decode_step", decode_step_key(key), step_x)
+        packages = [compile_package(x) for x in exported]
+        del exported
+        lap("compile")
+        for k, package in zip(keys, packages):
+            self.cache.put_package(k, package)
+        del packages
         lap("save")
-        admit_p = self.cache.load_program(decode_admit_key(key))
-        step_p = self.cache.load_program(decode_step_key(key))
+        admit_p, step_p = (self.cache.load_program(k) for k in keys)
         lap("load")
-        def run_admit(fn, k, v):
-            return fn(params, tok1, k, v, chain)
-
-        def run_step(fn, k, v):                     # on the pools one admit filled
-            _, k, v = admit_fn(params, tok1, k, v, chain)
-            return fn(params, k, v, table, pos, tok)
-
-        with torch.inference_mode():
-            zero = model.init_page_pool(n_pages, page_size, dev)
-            for saved, eager, run in ((admit_p, admit_fn, run_admit),
-                                      (step_p, step_fn, run_step)):
-                (l1, k1, v1), (l2, k2, v2) = [
-                    run(fn, zero["k_pages"].clone(), zero["v_pages"].clone())
-                    for fn in (saved, eager)]
-                synchronize(dev)
-                # page 0 takes the empty slots' writes in no fixed order
-                if not (torch.equal(l1, l2) and torch.equal(k1[:, 1:], k2[:, 1:])
-                        and torch.equal(v1[:, 1:], v2[:, 1:])):
-                    raise RuntimeError(
-                        f"ensure_decode {self.name}: the saved {type(eager).__name__}'s "
-                        "logits or pools differ from the eager program's on probe inputs")
+        gate = _decode_gate(self.name, model, params, admit_args, step_args,
+                            {"admit": (admit_p, admit_fn), "step": (step_p, step_fn)},
+                            page_size)
         lap("verify")
         return DecodeBundle(slots=slots, page_size=page_size, n_pages=n_pages,
-                            max_pages=max_pages, admit=admit_p, step=step_p, build_s=times)
+                            max_pages=max_pages, admit=admit_p, step=step_p, build_s=times,
+                            gate=gate)
 
     def example_tokens(self, seed: int = 0) -> np.ndarray:
         rng = np.random.default_rng(seed)
@@ -619,7 +731,7 @@ def _build_split(spec: FunctionSpec, model: Model, cache: CompileCache, key: str
     column. A program that fails to compile or load raises."""
     keys = {"head": head_key(key), "tail": tail_key(key)}
     for kind, fn, args in _split_args(model, spec, params, probe_tokens):
-        _publish(cache, kind, keys[kind], torch.export.export(fn, args))
+        _publish(cache, keys[kind], torch.export.export(fn, args))
     del fn, args
     head_p = cache.load_program(head_key(key))
     tail_p = cache.load_program(tail_key(key))
@@ -666,7 +778,7 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
     # what the compiled-package cache keys this program by: a later trace of
     # the same shape (TraceCompile) is held against it
     key_parts = aoti_package_key_parts(exported)
-    program_bytes = _publish(cache, "serve", key, exported, lap)
+    program_bytes = _publish(cache, key, exported, lap)
     lap("save")
     # deploy-time verification: boot the saved image once and run it
     program = cache.load_program(key)
@@ -702,8 +814,7 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
     snapshot_bytes = snapshots.save(key, params, first_use_order=use_order)
     lap("snapshot")
     build_seconds = now() - t_begin
-    extra = {"program_format": PROGRAM_FORMATS["serve"],
-             "program_formats": dict(PROGRAM_FORMATS), "package_key_parts": key_parts,
+    extra = {"program_format": AOTI, "package_key_parts": key_parts,
              "device": str(device),
              "split_serve": split_ok, "first_use_order_len": len(use_order)}
     if snapshots.blobs is not None:
@@ -728,12 +839,15 @@ def deploy(spec: FunctionSpec, cache: CompileCache, snapshots: SnapshotStore,
                       split_ok=split_ok)
 
 
-def trace_on_fakes(spec: FunctionSpec, device="cuda") -> Iterator[
-        Tuple[str, torch.export.ExportedProgram]]:
+def trace_on_fakes(spec: FunctionSpec, device="cuda", decode: Optional[tuple] = None
+                   ) -> Iterator[Tuple[str, torch.export.ExportedProgram]]:
     """The serve, head and tail programs that ``deploy`` of ``spec`` on
     ``device`` compiles, traced on ``FakeTensor``s from the parameters'
     shapes alone: no weight is read or allocated. Yields ``(kind, program)``,
-    the serve program first."""
+    the serve program first. With ``decode``, the arguments of
+    ``Deployment.ensure_decode`` (``(slots, page_size)``, optionally
+    ``max_pages`` and ``n_pages`` after them), then the admit and step
+    programs it compiles (kinds ``decode_admit`` and ``decode_step``)."""
     cfg = get_config(spec.arch)
     if spec.reduced:
         cfg = cfg.reduced()
@@ -743,21 +857,34 @@ def trace_on_fakes(spec: FunctionSpec, device="cuda") -> Iterator[
     yield "serve", torch.export.export(make_serve_fn(model, spec), (params, tokens))
     for kind, fn, args in _split_args(model, spec, params, tokens, mode):
         yield kind, torch.export.export(fn, args)
+    if decode is None:
+        return
+    slots, page_size = decode[:2]
+    max_pages, n_pages = decode_geometry(spec, *decode)
+    with mode:
+        admit_args, step_args = _decode_inputs(model, spec.prompt_len, slots, page_size,
+                                               max_pages, n_pages, tokens.device)
+    yield "decode_admit", torch.export.export(make_admit_fn(model, max_pages, page_size),
+                                              (params,) + admit_args)
+    yield "decode_step", torch.export.export(make_step_fn(model), (params,) + step_args)
 
 
-def precompile(spec: FunctionSpec, device="cuda") -> Dict[str, float]:
-    """Compile the serve, head and tail programs of ``spec`` for ``device``
-    into the compiled-package cache (:func:`compile_package`) before it is
-    deployed, from shapes alone (:func:`trace_on_fakes`): a build process
-    fills the cache, and a later ``deploy`` of the same spec, in this process
-    or another on the same cache directory, reads the packages back instead
-    of compiling. Deploy's rules still hold what it reads: the token gate
-    against eager and the split's bit-identity. Returns seconds by
+def precompile(spec: FunctionSpec, device="cuda", decode: Optional[tuple] = None
+               ) -> Dict[str, float]:
+    """Compile the serve, head and tail programs of ``spec`` for ``device``,
+    and with ``decode`` (``ensure_decode``'s arguments, see
+    :func:`trace_on_fakes`) the decode bundle's admit and step programs, into
+    the compiled-package cache (:func:`compile_package`) before it is
+    deployed, from shapes alone: a build process fills the cache, and a later
+    ``deploy`` and ``ensure_decode`` of the same spec, in this process or
+    another on the same cache directory, read the packages back instead of
+    compiling. Their rules still hold what they read: the token gate against
+    eager, the split's bit-identity, the decode gate. Returns seconds by
     ``<kind>_trace`` and ``<kind>_compile``."""
     times: Dict[str, float] = {}
     t = now()
     with build_slot():
-        for kind, exported in trace_on_fakes(spec, device):
+        for kind, exported in trace_on_fakes(spec, device, decode):
             times[f"{kind}_trace"] = now() - t
             t = now()
             compile_package(exported)

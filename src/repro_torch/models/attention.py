@@ -198,31 +198,36 @@ def _write_local(cache, pos, tok) -> None:
 
 def attention_decode_paged(cfg, p: dict, x_t: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
-                           pos: torch.Tensor, rope):
+                           pos: torch.Tensor, rope, layer: int):
     """One-token attention through a page table (continuous batching).
 
-    x_t: [B,1,d]; k_pages/v_pages: [P,page_size,nkv,hd], one layer's view of
-    the shared pool (contiguous, updated in place); page_table: int32
-    [B,max_pages]; pos: int32 [B] per-row positions; rope:
-    ``positional_tables`` of ``decode_positions`` (or None). Writes each row's
-    new K/V at ``page_table[row, pos // page_size]``, offset
-    ``pos % page_size`` (an empty slot's all-zero table row sends its write to
-    the null page 0), then attends through the table up to ``pos + 1``.
-    Returns (y [B,1,d], k_pages, v_pages).
+    x_t: [B,1,d]; k_pages/v_pages: the stacked pools [L,P,page_size,nkv,hd],
+    of which layer ``layer`` is read and written (contiguous, updated in
+    place); page_table: int32 [B,max_pages]; pos: int32 [B] per-row
+    positions; rope: ``positional_tables`` of ``decode_positions`` (or None).
+    Writes each row's new K/V at ``page_table[row, pos // page_size]``,
+    offset ``pos % page_size`` (an empty slot's all-zero table row sends its
+    write to the null page 0), then attends through the table up to
+    ``pos + 1``. Returns (y [B,1,d], k_pages, v_pages).
+
+    The write indexes the stacked pools themselves, never a per-layer view of
+    them: a compiled program (AOTInductor) functionalizes a write through a
+    view into a copy of the layer's pool and a copy back, on every call; a
+    write into the input tensor it performs in place.
     """
     B = x_t.shape[0]
-    page_size = k_pages.shape[1]
+    page_size = k_pages.shape[2]
     q = _proj_q(cfg, p, x_t)                                          # [B,1,nq,hd]
     k_t, v_t = _proj_kv(cfg, p, x_t)                                  # [B,1,nkv,hd]
     if rope is not None:
         q, k_t = rotate(q, rope), rotate(k_t, rope)
     pos = pos.long()
     page = page_table[torch.arange(B, device=x_t.device), pos // page_size].long()
-    off = pos % page_size
-    k_pages[page, off] = k_t[:, 0].to(k_pages.dtype)
-    v_pages[page, off] = v_t[:, 0].to(v_pages.dtype)
-    o = ops.paged_decode_attention(q[:, 0].contiguous(), k_pages, v_pages, page_table,
-                                   pos + 1)                           # [B,nq,hd]
+    at = (torch.full_like(page, layer), page, pos % page_size)
+    k_pages.index_put_(at, k_t[:, 0].to(k_pages.dtype))
+    v_pages.index_put_(at, v_t[:, 0].to(v_pages.dtype))
+    o = ops.paged_decode_attention(q[:, 0].contiguous(), k_pages[layer], v_pages[layer],
+                                   page_table, pos + 1)               # [B,nq,hd]
     return _out(cfg, p, o[:, None]), k_pages, v_pages
 
 

@@ -287,8 +287,8 @@ def uniform_decode_paged(cfg, sp, x_t, k_pages, v_pages, page_table, pos):
 
     k_pages/v_pages: [L, P, page_size, nkv, hd], one pool per layer sharing
     ONE page table (a logical page spans every layer, so the allocator
-    accounts it once), written in place through the per-layer views
-    ``k_pages[i]``; pos: int32 [B] per row. Returns (x_t, k_pages, v_pages).
+    accounts it once), written in place at each layer's index; pos: int32
+    [B] per row. Returns (x_t, k_pages, v_pages).
     Unstacked head layers (Kimi's first-k-dense) keep per-request caches and
     are refused, as in the JAX package.
     """
@@ -298,8 +298,8 @@ def uniform_decode_paged(cfg, sp, x_t, k_pages, v_pages, page_table, pos):
     for i in range(cfg.n_layers):
         p = _layer(sp, i)
         h = apply_norm(cfg, p["ln1"], x_t)
-        a, _, _ = attn.attention_decode_paged(cfg, p["attn"], h, k_pages[i], v_pages[i],
-                                              page_table, pos, rope)
+        a, _, _ = attn.attention_decode_paged(cfg, p["attn"], h, k_pages, v_pages,
+                                              page_table, pos, rope, layer=i)
         x_t = _ffn(cfg, p, x_t + a, EVAL_CF, False)[0]
     return x_t, k_pages, v_pages
 

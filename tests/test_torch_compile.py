@@ -6,10 +6,9 @@ through a port Gateway beside a JAX one, the port's snapshot replaced by the
 JAX deployment's weights (``params_from_numpy``), as in
 ``tests/test_torch_gateway.py``:
 
-* deploy stores the fused serve program, its head and tail and a bucket
-  program as AOTInductor packages (``program_format == "aoti"``, per key and
-  in the manifest); the decode bundle's admit and step keys stay
-  ``torch.export`` programs;
+* deploy stores the fused serve program, its head and tail, a bucket
+  program and the decode bundle's admit and step programs as AOTInductor
+  packages (``program_format == "aoti"``, per key and in the manifest);
 * each package, loaded from its payload bytes alone, gives the JAX compiled
   program's tokens on the same weights and prompts (the bucket at 4 rows;
   head + tail as the streamed boot runs them);
@@ -20,11 +19,12 @@ JAX deployment's weights (``params_from_numpy``), as in
   ``compile`` part far below ``cold_jit``'s; every boot gives request 1's
   tokens;
 * a payload's format is read from its tag, never guessed: an untagged
-  payload is refused;
+  payload, or one tagged ``torch.export``, is refused;
 * ``precompile`` traces deploy's serve, head and tail programs on fake
   tensors (each family's trace has the keys of the trace on weights) and
   compiles them into the package cache, and a later deploy reads all three
-  back.
+  back; with a decode geometry it does the same for the decode bundle's
+  admit and step programs, which ``ensure_decode`` then reads back.
 
 ``tests/test_torch_imports.py`` checks that no module of the port imports JAX.
 """
@@ -46,7 +46,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import FunctionSpec, Gateway
 from repro_torch.core import compile_cache
 from repro_torch.core.compile_cache import (
-    AOTI, TORCH_EXPORT, CompileCache, decode_admit_key, decode_step_key, package_op_calls,
+    AOTI, CompileCache, decode_admit_key, decode_step_key, package_op_calls,
 )
 from repro_torch.core.decode import DecodeConfig
 
@@ -108,21 +108,19 @@ def _prompts(rows, seed):
                                                 dtype=np.int32)
 
 
-def test_deploy_stores_aoti_packages_and_the_decode_bundle_stays_exported(pair):
+def test_deploy_stores_aoti_packages_the_decode_bundle_among_them(pair):
     _, pgw, _, dep, _ = pair
     cache, key = dep.cache, dep.image.key
     extra = dep.image.manifest.extra
     assert extra["program_format"] == AOTI and dep.split_ok
-    assert extra["program_formats"] == {"serve": AOTI, "head": AOTI, "tail": AOTI,
-                                        "bucket": AOTI, "decode_admit": TORCH_EXPORT,
-                                        "decode_step": TORCH_EXPORT}
-    for k in (key, dep.head_program_key(), dep.tail_program_key(),
-              dep.bucket_image_key(BUCKET)):
-        assert cache.program_format(k) == AOTI, k
+    assert "program_formats" not in extra                            # one format for all
     assert _name() in pgw.decoders                                   # the bundle is built
-    for k in (decode_admit_key(key), decode_step_key(key)):
-        assert cache.program_format(k) == TORCH_EXPORT, k
+    for k in (key, dep.head_program_key(), dep.tail_program_key(),
+              dep.bucket_image_key(BUCKET), decode_admit_key(key), decode_step_key(key)):
+        assert cache.program_format(k) == AOTI, k
     assert {"export", "compile", "save", "load", "verify"} <= set(dep.build_s)
+    assert {"export", "compile", "save", "load", "verify"} <= \
+        set(pgw.decoders[_name()].bundle.build_s)
     assert {f"bucket{BUCKET}_{s}" for s in ("export", "compile", "save", "load", "verify")} \
         <= set(dep.build_s)
 
@@ -248,7 +246,8 @@ def test_payload_format_is_read_from_its_tag(pair, tmp_path):
     payload = dep.fetch_program_payload()
     assert compile_cache.payload_format(payload)[0] == AOTI
     body = payload[compile_cache.payload_format(payload)[1]:]
-    for bad in (body, b"repro_torch program onnx\n" + body):
+    for bad in (body, b"repro_torch program onnx\n" + body,
+                b"repro_torch program torch.export\n" + body):
         with pytest.raises(ValueError):
             CompileCache.deserialize_program(bad)
     cache = CompileCache(tmp_path / "c")
@@ -300,3 +299,70 @@ def test_precompile_fills_the_packages_a_later_deploy_reads(monkeypatch, tmp_pat
                                        device="cpu"))
     assert read == {"aoti_package_cache_hit": 3}          # serve, head and tail
     assert dep.split_ok and dep.image.manifest.extra["program_format"] == AOTI
+
+
+def _decode_traces_on_weights(spec, decode):
+    """The admit and step programs ``ensure_decode(*decode)`` of a deploy of
+    ``spec`` on the CPU traces, on its initial weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import (
+        _decode_inputs, decode_geometry, make_admit_fn, make_step_fn)
+    from repro_torch.models import build_model
+    model = build_model(get_config(spec.arch).reduced(),
+                        max_seq=spec.prompt_len + spec.decode_steps)
+    params = model.init(torch.Generator().manual_seed(spec.seed))
+    max_pages, n_pages = decode_geometry(spec, *decode)
+    admit_args, step_args = _decode_inputs(model, spec.prompt_len, decode[0], decode[1],
+                                           max_pages, n_pages, "cpu")
+    return {"decode_admit": torch.export.export(make_admit_fn(model, max_pages, decode[1]),
+                                                (params,) + admit_args),
+            "decode_step": torch.export.export(make_step_fn(model), (params,) + step_args)}
+
+
+@pytest.mark.parametrize("decode", [(2, 8), (3, 8, 4, 7)], ids=["default", "jax_geometry"])
+def test_a_trace_on_fakes_has_the_decode_package_keys_of_the_trace_on_weights(decode):
+    """What ``precompile`` compiles for a decode geometry is what
+    ``ensure_decode`` compiles: the admit and step programs traced on fakes
+    have the keys of the traces on weights."""
+    from repro_torch.core.deploy import trace_on_fakes
+    _register_f32_arch()
+    spec = FunctionSpec(**SPEC)
+    fake = {kind: compile_cache.package_key(ep)
+            for kind, ep in trace_on_fakes(spec, "cpu", decode=decode)}
+    assert list(fake) == ["serve", "head", "tail", "decode_admit", "decode_step"]
+    real = _decode_traces_on_weights(spec, decode)
+    assert {k: fake[k] for k in real} == \
+        {kind: compile_cache.package_key(ep) for kind, ep in real.items()}
+
+
+def test_precompile_with_a_decode_geometry_fills_the_bundle_ensure_decode_reads(pair,
+                                                                                 tmp_path):
+    """``precompile(..., decode=(3, 8))`` compiles the admit and step
+    programs of ``ensure_decode(3, 8)`` into the package cache beside the
+    serve, head and tail programs (which the pair's deploy compiled: hits;
+    it built its bundle at (2, 8)); a deployment that then builds its bundle
+    at (3, 8) reads both packages back and compiles nothing."""
+    import threading
+    from repro_torch.core.deploy import precompile
+    _, _, _, dep, _ = pair
+    kinds = ("serve", "head", "tail", "decode_admit", "decode_step")
+
+    def lookups(fn):
+        before = dict(compile_cache.counters())
+        out = fn()
+        return out, {k: v - before.get(k, 0) for k, v in compile_cache.counters().items()
+                     if v - before.get(k, 0)}
+
+    times, built = lookups(lambda: precompile(dep.spec, "cpu", decode=(3, 8)))
+    assert sum(built.values()) == 5 and built.get("aoti_package_cache_hit", 0) >= 3
+    assert set(times) == {f"{k}_{s}" for k in kinds for s in ("trace", "compile")}
+    from torch._inductor import config as inductor_config
+    for kind, ep in _decode_traces_on_weights(dep.spec, (3, 8)).items():
+        with inductor_config.patch(compile_cache.compile_options()):   # as compile_package
+            path = compile_cache.package_cache_dir() / f"{compile_cache.package_key(ep)}.pt2"
+        assert path.exists(), kind
+    fresh = dataclasses.replace(dep, cache=CompileCache(tmp_path / "c"), _decode_bundle=None,
+                                _decode_lock=threading.Lock())
+    bundle, read = lookups(lambda: fresh.ensure_decode(3, 8))
+    assert read == {"aoti_package_cache_hit": 2}
+    assert (bundle.slots, bundle.page_size) == (3, 8) and bundle.gate["step"]["in_place"]

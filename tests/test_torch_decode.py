@@ -3,7 +3,16 @@
 * ``DecodeScheduler`` token-exact against the JAX ``DecodeScheduler`` (on a
   ``repro.core.cluster.Cluster``) and against the dense per-request greedy
   oracle, reduced llama3.2-3b in float32 on the JAX package's weights, with
-  mixed budgets sharing the loop.
+  mixed budgets sharing the loop, on the compiled decode bundle.
+* The bundle's admit and step programs are AOTInductor packages: loaded
+  from their bytes, they match the JAX package's compiled admit and step
+  programs on the same weights (logits, the K/V written into the chain's
+  pages, the next greedy token; f32, within 1e-4); they write the caller's
+  pools in place, return those same tensors and allocate nothing as large
+  as one layer's pool; ``ensure_decode`` takes the JAX package's
+  ``max_pages`` and ``n_pages``; the deploy-time gate refuses a loaded
+  program whose logits drift, whose greedy token changes, whose written
+  pages drift or which returns copies of the pools.
 * The behaviours of ``tests/test_decode_loop.py`` on the port: backfill, FIFO
   under page exhaustion, cool-to-zero and reboot, EOS and deadline
   retirement, ``max_new`` range rejection, close during an in-flight admit,
@@ -16,6 +25,8 @@ import dataclasses
 import threading
 import time
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -38,7 +49,10 @@ import repro_torch.configs.base as torch_configs
 from repro_torch.core import paging, scheduler
 from repro_torch.core.artifact import FunctionSpec
 from repro_torch.core.cluster import Cluster, HostFailure
-from repro_torch.core.compile_cache import CompileCache, decode_admit_key, decode_step_key
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.compile_cache import (
+    AOTI, CompileCache, decode_admit_key, decode_step_key, package_op_calls,
+)
 from repro_torch.core.decode import DecodeConfig, DecodeScheduler
 from repro_torch.core.deploy import deploy
 from repro_torch.core.executor import ExecutorState
@@ -341,32 +355,210 @@ def test_decode_bundle_is_a_deploy_time_artifact(dep):
     assert b1.n_pages == 1 + b1.slots * b1.max_pages and b1.max_pages == 3
     key = dep.image.key
     assert dep.cache.has(decode_admit_key(key)) and dep.cache.has(decode_step_key(key))
-    assert {"export", "save", "load", "verify"} <= set(b1.build_s)
-    graph_ops = {str(n.target) for n in b1.step.graph.nodes if n.op == "call_function"}
-    assert "repro_torch.paged_decode_attention.default" in graph_ops
-    assert "repro_torch.decode_attention.default" not in graph_ops
+    assert {"export", "compile", "save", "load", "verify"} <= set(b1.build_s)
+    L = dep.model.cfg.n_layers
+    admit_calls = package_op_calls(dep.cache.read_program_bytes(decode_admit_key(key)))
+    step_calls = package_op_calls(dep.cache.read_program_bytes(decode_step_key(key)))
+    assert admit_calls == ["repro_torch::flash_attention"] * L
+    assert step_calls == ["repro_torch::paged_decode_attention"] * L
+    assert "repro_torch::decode_attention" not in step_calls
+    for kind in ("admit", "step"):
+        g = b1.gate[kind]
+        print(f"ensure_decode gate, {kind}: {g}")   # the comparison, with pytest -s
+        assert g["in_place"]
+        # bit for bit, or the compiled programs' rule with its errors logged
+        assert g["equal"] or (g["argmax_equal"] and
+                              all(c <= 2 * b for c, b in g["rel_l2"].values())), g
 
 
-def test_ensure_decode_refuses_a_saved_program_that_differs(dep, monkeypatch):
-    """The loaded step program is held to the eager one; one that drifts in
-    its logits is refused, not installed."""
-    fresh = dataclasses.replace(dep, _decode_bundle=None, _decode_lock=threading.Lock())
+def _skewed_load(dep, how):
+    """``load_program`` of ``dep``'s cache with the step program skewed:
+    its logits scaled (greedy tokens kept), its greedy token changed by the
+    smallest step, the K row it wrote scaled, a stray row written into a
+    live page it should leave alone (the last page, off the probe's chain),
+    or copies of the pools returned."""
     real_load = dep.cache.load_program
 
-    def skewed(key):
+    def load(key):
         program = real_load(key)
         if key != decode_step_key(dep.image.key):
             return program
 
-        def run(*args):
-            logits, k, v = program(*args)
-            return logits + 1e-3, k, v
+        def run(params, k, v, table, pos, tok):
+            logits, k2, v2 = program(params, k, v, table, pos, tok)
+            if how == "logits":
+                return logits * 1.5, k2, v2
+            if how == "token":
+                logits = logits.clone()
+                top = logits[0].topk(2)
+                logits[0, top.indices[1]] = top.values[0] + 1e-3 * top.values[0].abs()
+                return logits, k2, v2
+            if how == "pages":
+                p0 = int(pos[0])
+                k2[:, int(table[0, p0 // 8]), p0 % 8] *= 1.5
+                return logits, k2, v2
+            if how == "stray":
+                k2[:, k2.shape[1] - 1, 0] += 1.0
+                return logits, k2, v2
+            return logits, k2.clone(), v2.clone()
         return run
+    return load
 
-    monkeypatch.setattr(fresh.cache, "load_program", skewed)
+
+def test_ensure_decode_refuses_a_saved_program_that_differs(dep, monkeypatch):
+    """The loaded step program is held to the eager one; one whose logits
+    drift farther from the f32 plain route than twice the eager bf16 program
+    (its greedy tokens kept) is refused, not installed."""
+    fresh = dataclasses.replace(dep, _decode_bundle=None, _decode_lock=threading.Lock())
+    monkeypatch.setattr(fresh.cache, "load_program", _skewed_load(dep, "logits"))
     with pytest.raises(RuntimeError, match="differ from the eager"):
         fresh.ensure_decode(3, 8)
     assert fresh._decode_bundle is None
+
+
+@pytest.mark.parametrize("how, match", [("token", "differ from the eager"),
+                                        ("pages", "differ from the eager"),
+                                        ("stray", "differ from the eager"),
+                                        ("copies", "in place")])
+def test_ensure_decode_refuses_a_changed_token_drifted_pages_or_pool_copies(dep, monkeypatch,
+                                                                             how, match):
+    fresh = dataclasses.replace(dep, _decode_bundle=None, _decode_lock=threading.Lock())
+    monkeypatch.setattr(fresh.cache, "load_program", _skewed_load(dep, how))
+    with pytest.raises(RuntimeError, match=match):
+        fresh.ensure_decode(3, 8)
+    assert fresh._decode_bundle is None
+
+
+def _jax_weights(jdep):
+    """The JAX deployment's weights: (the host tree, its arrays)."""
+    host = jax.tree.map(np.asarray, jdep.snapshots.load_host(jdep.image.key))
+    return host, jax.tree.map(jnp.asarray, host)
+
+
+def _close(want, got):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=1e-4, rtol=1e-4)
+
+
+def _admit_and_step(jbundle, jparams, admit, step, params, pools, ids, rows):
+    """Two requests admitted into ``ids`` by the JAX programs and by
+    ``admit``, then one step of both with slot 1 empty (rows: the slot of
+    each request): the JAX and the port's logits and pools after each."""
+    jk, jv = [jnp.asarray(p.numpy()) for p in pools]
+    tk, tv = [p.clone() for p in pools]
+    out = {"admit": []}
+    for r in range(2):
+        jl, jk, jv = jbundle.admit(jparams, jnp.asarray(_prompt(20 + r)), jk, jv,
+                                   jnp.asarray(ids[r]))
+        with torch.inference_mode():
+            tl, tk2, tv2 = admit(params, torch.from_numpy(_prompt(20 + r)), tk, tv,
+                                 torch.from_numpy(ids[r]))
+        assert tk2.data_ptr() == tk.data_ptr() and tv2.data_ptr() == tv.data_ptr()
+        out["admit"].append((jl, tl))
+    out["admit_pools"] = ((jk, jv), (tk.clone(), tv.clone()))
+    table = np.zeros((jbundle.slots, jbundle.max_pages), np.int32)
+    pos = np.zeros((jbundle.slots,), np.int32)
+    tok = np.zeros((jbundle.slots, 1), np.int32)
+    for r, slot in enumerate(rows):
+        table[slot], pos[slot] = ids[r], PROMPT
+        tok[slot, 0] = int(np.argmax(np.asarray(out["admit"][r][0])))
+    jl, jk, jv = jbundle.step(jparams, jk, jv, jnp.asarray(table), jnp.asarray(pos),
+                              jnp.asarray(tok))
+    with torch.inference_mode():
+        tl, tk2, tv2 = step(params, tk, tv, torch.from_numpy(table), torch.from_numpy(pos),
+                            torch.from_numpy(tok))
+    assert tk2.data_ptr() == tk.data_ptr() and tv2.data_ptr() == tv.data_ptr()
+    out["step"] = (jl, tl, (jk, jv), (tk, tv), table, pos)
+    return out
+
+
+def test_compiled_admit_and_step_from_their_bytes_match_jax_compiled_programs(deps):
+    """The packages alone (their payload bytes, loaded anew) against the JAX
+    package's compiled admit and step programs, on the JAX weights: f32,
+    within 1e-4 absolute and relative (the eager programs' tolerance in
+    tests/test_torch_paged.py)."""
+    jdep, dep = deps
+    bundle, jbundle = dep.ensure_decode(3, 8), jdep.ensure_decode(3, 8)
+    assert (bundle.slots, bundle.max_pages, bundle.n_pages) == \
+        (jbundle.slots, jbundle.max_pages, jbundle.n_pages)
+    key = dep.image.key
+    admit, step = (CompileCache.deserialize_program(dep.cache.read_program_bytes(k))
+                   for k in (decode_admit_key(key), decode_step_key(key)))
+    assert dep.cache.program_format(decode_admit_key(key)) == AOTI
+    assert dep.cache.program_format(decode_step_key(key)) == AOTI
+    jhost, jparams = _jax_weights(jdep)
+    params = params_from_numpy(jhost, "cpu")
+    pools = dep.model.init_page_pool(bundle.n_pages, bundle.page_size, "cpu")
+    ids = np.array([[4, 2, 0], [7, 1, 9]], np.int32)
+    out = _admit_and_step(jbundle, jparams, admit, step, params,
+                          (pools["k_pages"], pools["v_pages"]), ids, rows=(0, 2))
+    for jl, tl in out["admit"]:
+        _close(jl, tl)
+    (jk, jv), (tk, tv) = out["admit_pools"]
+    for r in range(2):                                   # the chains' pages
+        chain = ids[r][ids[r] > 0]
+        _close(np.asarray(jk)[:, chain], tk[:, chain])
+        _close(np.asarray(jv)[:, chain], tv[:, chain])
+    jl, tl, (jk, jv), (tk, tv), table, pos = out["step"]
+    for slot in (0, 2):                                   # live rows
+        _close(jl[slot], tl[slot])
+        assert int(np.argmax(np.asarray(jl[slot]))) == int(torch.argmax(tl[slot]))
+        page, off = table[slot, pos[slot] // 8], pos[slot] % 8
+        _close(np.asarray(jk)[:, page, off], tk[:, page, off])
+        _close(np.asarray(jv)[:, page, off], tv[:, page, off])
+
+
+def test_loaded_programs_write_the_callers_pools_in_place_and_copy_no_pool(dep):
+    """The input pools change, the returned pools are those same tensors, and
+    no allocation the call makes is as large as one layer's pool: no copy of
+    a pool, whole or one layer's, is made and written back."""
+    from torch.profiler import ProfilerActivity, profile
+    bundle = dep.ensure_decode(3, 8)
+    params = dep.snapshots.load_host(dep.image.key)
+    pools = dep.model.init_page_pool(bundle.n_pages, bundle.page_size, "cpu")
+    kp, vp = pools["k_pages"], pools["v_pages"]
+    layer_bytes = kp[0].numel() * kp.element_size()
+    chain = torch.arange(1, bundle.max_pages + 1, dtype=torch.int32)
+    table = torch.zeros((bundle.slots, bundle.max_pages), dtype=torch.int32)
+    table[1] = chain
+    pos = torch.tensor([0, PROMPT, 0], dtype=torch.int32)
+    tok = torch.tensor([[0], [5], [0]], dtype=torch.int32)
+    calls = (("admit", lambda: bundle.admit(params, torch.from_numpy(_prompt(3)), kp, vp,
+                                            chain)),
+             ("step", lambda: bundle.step(params, kp, vp, table, pos, tok)))
+    for kind, call in calls:
+        before = (kp.clone(), vp.clone())
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU],
+                                             profile_memory=True) as prof:
+            _, k2, v2 = call()
+        assert k2 is kp and v2 is vp, kind
+        assert not torch.equal(kp, before[0]) and not torch.equal(vp, before[1]), kind
+        largest = max(e.cpu_memory_usage for e in prof.events())
+        assert 0 < largest < layer_bytes, (kind, largest, layer_bytes)
+
+
+def test_ensure_decode_takes_jax_max_pages_and_n_pages(deps, tmp_path):
+    """``ensure_decode(slots, page_size, max_pages, n_pages)`` builds the
+    geometry the JAX package's does, and its programs there give the JAX
+    programs' logits."""
+    jdep, dep = deps
+    jfresh = dataclasses.replace(jdep, _decode_bundle=None)
+    fresh = dataclasses.replace(dep, cache=CompileCache(tmp_path / "c"), _decode_bundle=None,
+                                _decode_lock=threading.Lock())
+    jb = jfresh.ensure_decode(2, 8, max_pages=4, n_pages=7)
+    b = fresh.ensure_decode(2, 8, max_pages=4, n_pages=7)
+    assert (b.slots, b.page_size, b.max_pages, b.n_pages) == \
+        (jb.slots, jb.page_size, jb.max_pages, jb.n_pages) == (2, 8, 4, 7)
+    jhost, jparams = _jax_weights(jdep)
+    params = params_from_numpy(jhost, "cpu")
+    pools = fresh.model.init_page_pool(b.n_pages, b.page_size, "cpu")
+    ids = np.array([[3, 1, 0, 0], [2, 6, 5, 4]], np.int32)
+    out = _admit_and_step(jb, jparams, b.admit, b.step, params, (pools["k_pages"], pools["v_pages"]), ids, rows=(1, 0))
+    for jl, tl in out["admit"]:
+        _close(jl, tl)
+    jl, tl = out["step"][:2]
+    for slot in (0, 1):
+        _close(jl[slot], tl[slot])
 
 
 # ------------------------------------------------------------ the copies

@@ -13,7 +13,8 @@ import torch
 from repro_torch.kernels import _cuda, ops
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 # modules of repro.dist with no counterpart, and why
 NOT_PORTED = {"compat.py"}      # shims JAX API names across JAX versions
@@ -43,7 +44,8 @@ def test_port_sources_were_found():
             "batching.py", "drivers.py", "executor.py", "snapshot.py",
             "compile_cache.py", "forecast.py", "frontends.py", "olmo_1b.py",
             "qwen2_5_32b.py", "starcoder2_3b.py", "arctic_480b.py", "kimi_k2_1t_a32b.py",
-            "qwen2_vl_2b.py", "whisper_medium.py"} <= names
+            "qwen2_vl_2b.py", "whisper_medium.py", "torch_quickstart.py",
+            "torch_serve_coldstart.py", "torch_train_smoke.py"} <= names
     # a counterpart of every config and model module of the JAX package
     for sub in ("configs", "models"):
         jax_mods = {p.name for p in (ROOT / "src" / "repro" / sub).glob("*.py")}

@@ -291,8 +291,9 @@ def test_attention_decode_paged_writes_its_row_in_place(models):
     pos = torch.tensor([9, 0], dtype=torch.int32)
     x = torch.randn(2, 1, cfg.d_model, generator=torch.Generator().manual_seed(0))
     rope = positional_tables(cfg, tattn.decode_positions(2, pos, pos.device))
-    y, k2, v2 = tattn.attention_decode_paged(cfg, L0, x, kp, vp, table, pos, rope)
-    assert k2 is kp and v2 is vp and tuple(y.shape) == (2, 1, cfg.d_model)
+    kps, vps = kp[None], vp[None]                             # the stacked pools of 1 layer
+    y, k2, v2 = tattn.attention_decode_paged(cfg, L0, x, kps, vps, table, pos, rope, 0)
+    assert k2 is kps and v2 is vps and tuple(y.shape) == (2, 1, cfg.d_model)
     written = (kp.abs().sum(dim=(2, 3)) > 0).nonzero().tolist()
     assert written == [[0, 0], [5, 1]]                        # null page 0 @0, page 5 @1
 
