@@ -54,8 +54,11 @@ the script exits non-zero:
    state, f32, the reduced dims (with a carried state in bf16), large input
    gates and S one step past one and two chunks; for the selective
    scan ragged S, S = 1, S past a chunk, a carried state, f32, the reduced
-   dims, a channel count that is no multiple of the block, and decays that
-   underflow to 0; for flash also phase 3g's shapes: whisper's encoder,
+   dims, a channel count that is no multiple of the block, rows that are not
+   16-byte aligned, decays that underflow to 0, one row and Di = 4096 at
+   B = 4 (both timed), and each of these at B = 4 and Di = 16,384 too, where
+   the kernel takes its one-lane layout; for flash also phase 3g's shapes:
+   whisper's encoder,
    bidirectional over 1500 frames at 16/16 heads of 64, its cross-attention
    of 128 tokens against 1500 frames, and G = 5, 6, 7, 12 at D = 128, causal
    at 512 and at a ragged length; for decode whisper's cross decode over
@@ -71,8 +74,8 @@ the script exits non-zero:
    device alone (``device_ms``, ``library_device_ms``: 200 calls captured
    in one CUDA graph and replayed), the wrapper's host time per call
    (``host_us``), and the least time the card could take (``bound_ms``;
-   for the scan the larger of its bytes and its exponentials at the SM
-   clock).
+   for the scan the larger of its bytes and its SFU + FP32 compute floor,
+   ``scan_bound``, beside its exponentials on the SFU alone).
 3. Path, through the port's control plane: ``Gateway(n_hosts=2,
    slots_per_host=2, mode="cold", hedging=False, scheduler=
    SchedulerConfig(snapshot_tier_bytes=4 << 30), decode=DecodeConfig(slots=8,
@@ -314,6 +317,26 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12            # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12              # f32 outside the tensor cores
 MUFU_PER_CLOCK_PER_SM = 16          # exponentials (ex2) per clock per SM, Hopper
+# The selective scan's compute floor (``scan_bound``). Its work is B x S x Di x
+# Ds (step, state) elements, each one exponential and, around it, SCAN_SLOTS
+# warp-instruction issue slots of the function's own operations: dt·a, dx·B,
+# the FMA into h, the FMA into y and the issue of the ex2 itself. What a
+# design adds (the reads of B_t and C_t, the per-step work on x and dt, the
+# reduction of y over lanes, its store) is left out, as a design with more
+# states a thread would amortise it. An SM has 4 sub-partitions, each issuing
+# 1 warp instruction a clock; a sub-partition's SFU takes 8 clocks for a
+# warp's ex2 (32 lanes at 4 a clock, MUFU_PER_CLOCK_PER_SM). An exponential
+# moved to the FP32 pipe (a Cody–Waite range reduction and a degree-6
+# polynomial) takes POLY_SLOTS slots in place of the ex2's one. With a share
+# p moved, a warp-element costs max(SCAN_SLOTS + p (POLY_SLOTS - 1),
+# 8 (1 - p)) clocks of a sub-partition, least at p* = (8 - SCAN_SLOTS) /
+# (8 + POLY_SLOTS - 1) = 3/19, where it is 8 (1 - p*) = 6.74; over 132 SMs x
+# 4 sub-partitions at the maximum SM clock.
+SUBPARTITIONS_PER_SM = 4
+SFU_CLOCKS_PER_WARP_EX2 = 32 * SUBPARTITIONS_PER_SM // MUFU_PER_CLOCK_PER_SM   # 8
+SCAN_SLOTS = 5                      # issue slots per element, its ex2's included
+POLY_SLOTS = 12                     # a polynomial exp2: clamp, 3 adds, 6 FMAs, shift, multiply
+SCAN_BOUND_KEYS = ("bound_bytes_ms", "bound_exp_sfu_ms", "bound_exp_ms")
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 GRAPH_CALLS = 200                   # wrapper calls captured in one CUDA graph (device_ms)
 
@@ -561,6 +584,25 @@ def bound(nbytes: float, flops: float, flop_rate: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def scan_bound(elements: float, nbytes: float, sm_clocks_per_s: float) -> dict:
+    """The selective scan's bounds in ms for ``elements`` (step, state)
+    elements moving ``nbytes`` (each input read once, each output written
+    once), on a card of ``sm_clocks_per_s`` = SMs x the maximum SM clock:
+    the bytes at HBM_BYTES_PER_S, every exponential on the SFUs, and the
+    SFU + FP32 floor of the comment at SCAN_SLOTS; ``bound_ms`` is the larger
+    of the bytes and that floor."""
+    warp_elements = elements / 32 / SUBPARTITIONS_PER_SM
+    p = max(0.0, (SFU_CLOCKS_PER_WARP_EX2 - SCAN_SLOTS) /
+            (SFU_CLOCKS_PER_WARP_EX2 + POLY_SLOTS - 1))
+    clocks = max(SCAN_SLOTS + p * (POLY_SLOTS - 1), SFU_CLOCKS_PER_WARP_EX2 * (1 - p))
+    row = {"bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_exp_sfu_ms": warp_elements * SFU_CLOCKS_PER_WARP_EX2 / sm_clocks_per_s * 1e3,
+           "bound_exp_ms": warp_elements * clocks / sm_clocks_per_s * 1e3, "poly_share": p}
+    row["bound_ms"] = max(row["bound_bytes_ms"], row["bound_exp_ms"])
+    row["bound_by"] = "bytes" if row["bound_bytes_ms"] >= row["bound_exp_ms"] else "operations"
+    return row
+
+
 def compiled_launches(dep, eager: dict, bucket_rows=None) -> dict:
     """Kernel launches per request of ``dep``'s compiled serve program (at
     ``bucket_rows`` rows, None: the deploy shape): ``eager``, the eager
@@ -656,7 +698,8 @@ def rel_l2(a, b) -> float:
 
 
 def ptxas_lines(lib_path, sources=("flash_attention.cu", "mlstm.cu", "decode_attention.cu",
-                                    "decode_stats.cu", "paged_decode_attention.cu")) -> list:
+                                    "decode_stats.cu", "paged_decode_attention.cu",
+                                    "selective_scan.cu")) -> list:
     """The ``ptxas -v`` lines (entry, registers, shared memory, spills) of
     ``sources`` in the build log next to the library."""
     path = Path(lib_path).parent / "build.log"
@@ -959,15 +1002,15 @@ def check_mlstm(torch, mk, ref, gen, case, timed: bool):
     return row
 
 
-def check_scan(torch, F, ss, ref, gen, case, timed: bool, exp_per_s: float):
+def check_scan(torch, F, ss, ref, gen, case, timed: bool, sm_clocks_per_s: float):
     """The selective-scan kernel against ``ref.selective_scan``. Inputs are
     drawn like the model's: x, b, c ~ N(0, 1) in ``dtype``; dt =
     softplus(N(0, 1)) x ``dt_scale`` in f32 (a scale of 1e4 underflows every
     decay to 0); a_log = log(1..Ds) + 0.1 N(0, 1) (the S4D-real init, jittered);
     d_skip ~ N(0, 1). With ``split``, the kernel runs the first ``split``
     steps, then the rest from the state it returned, against one long plain
-    pass. ``exp_per_s`` is the card's rate of exponentials (special-function
-    units), for the bound."""
+    pass. ``sm_clocks_per_s`` is the card's SMs x its maximum SM clock, for
+    the bounds (``scan_bound``)."""
     B, S, Di, Ds, dtype, split, dt_scale = case
     dt_ = getattr(torch, dtype)
     x = torch.randn(B, S, Di, generator=gen, device="cuda").to(dt_)
@@ -996,10 +1039,7 @@ def check_scan(torch, F, ss, ref, gen, case, timed: bool, exp_per_s: float):
            "scaled_err_h": err_h, "ok": ok}
     if timed:
         nbytes = sum(t.numel() * t.element_size() for t in (x, dt, a_log, b, c, d_skip, y, h))
-        exps = float(B * S * Di * Ds)
-        row["bound_bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
-        row["bound_exp_ms"] = exps / exp_per_s * 1e3
-        row["bound_ms"], row["bound_by"] = bound(nbytes, exps, exp_per_s)
+        row.update(scan_bound(float(B * S * Di * Ds), nbytes, sm_clocks_per_s))
         # no single PyTorch call computes the selective scan: no library time
         row.update(timings(torch, lambda: ss.selective_scan(x, dt, a_log, b, c, d_skip), 50,
                            lambda: ref.selective_scan(x, dt, a_log, b, c, d_skip), 3))
@@ -3765,7 +3805,8 @@ def main(mesh_only=False):
                                    "--format=csv,noheader,nounits"], check=True,
                                   capture_output=True, text=True).stdout.split()[0])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    exp_per_s = MUFU_PER_CLOCK_PER_SM * n_sm * sm_mhz * 1e6
+    sm_clocks_per_s = n_sm * sm_mhz * 1e6
+    exp_per_s = MUFU_PER_CLOCK_PER_SM * sm_clocks_per_s
     log(f"device: {kind} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
         f"capability {cap[0]}.{cap[1]} | {n_sm} SMs, max SM clock {sm_mhz:.0f} MHz "
         f"(exponentials: {MUFU_PER_CLOCK_PER_SM} per clock per SM = {exp_per_s:.4g}/s) | "
@@ -3911,6 +3952,22 @@ def main(mesh_only=False):
                   (2, 64, 1000, 16, "bfloat16", 0, 1.0),          # Di not a multiple of 128
                   (2, 96, 1000, 4, "float32", 0, 1.0),
                   (2, 64, 2048, 16, "float32", 0, 1e4)]           # every decay underflows to 0
+    scan_cases += [(2, 70, 1001, 16, "bfloat16", 0, 1.0),       # rows not 16-byte aligned
+                   (2, 33, 1001, 8, "float32", 9, 1.0)]
+    scan_one_row = (1, 512, 16384, 16, "bfloat16", 0, 1.0)       # a one-prompt prefill, timed
+    scan_narrow = (4, 512, 4096, 16, "bfloat16", 0, 1.0)         # Di = 4096 at B = 4, timed
+    scan_cases += [scan_one_row, scan_narrow]
+    # the kernel takes one lane a channel where B x Di >= 256 x the SMs (33,792
+    # on 132), two below: every case above but the first takes two, these one
+    scan_cases += [(4, 100, 16384, 16, "bfloat16", 0, 1.0),     # ragged S
+                   (4, 1, 16384, 16, "bfloat16", 0, 1.0),       # S = 1
+                   (4, 512, 16384, 16, "bfloat16", 200, 1.0),   # carried state
+                   (4, 150, 16384, 16, "float32", 64, 1.0),     # f32 x
+                   (4, 77, 16384, 8, "bfloat16", 0, 1.0),       # Ds = 8, S past a stage
+                   (4, 96, 16384, 4, "float32", 0, 1.0),        # Ds = 4
+                   (4, 70, 16385, 16, "bfloat16", 0, 1.0),      # rows not 16-byte aligned
+                   (4, 33, 16385, 8, "float32", 9, 1.0),
+                   (4, 64, 16384, 16, "float32", 0, 1e4)]       # every decay underflows to 0
     # what encoding the flash kernel's three TMA tensor maps costs the host per call
     qm = torch.empty(flash_main[:2] + flash_main[3:4] + flash_main[5:6], dtype=torch.bfloat16,
                      device="cuda")
@@ -3927,8 +3984,9 @@ def main(mesh_only=False):
                    id(decode_bucket): "the 16-row bucket's shape",
                    id(decode_tp_local): "phase 3m serve_tp's local shape",
                    id(stats_long): "one row of a 32,768-position shard",
-                   id(stats_d64): "16/8 heads at D = 64", **FAMILY_TIMED}
-    results, bucket_rows, family_rows = {}, {}, {}
+                   id(stats_d64): "16/8 heads at D = 64", id(scan_one_row): "one row",
+                   id(scan_narrow): "Di = 4096", **FAMILY_TIMED}
+    results, bucket_rows, family_rows, scan_rows = {}, {}, {}, {}
     for name, check, cases in (
             ("flash_attention",
              lambda c, t: check_flash(torch, F, fa, ref, gen, c, t), flash_cases),
@@ -3940,7 +3998,8 @@ def main(mesh_only=False):
              lambda c, t: check_paged(torch, F, pda, da, ref, gen, c, t), paged_cases),
             ("mlstm", lambda c, t: check_mlstm(torch, mk, ref, gen, c, t), mlstm_cases),
             ("selective_scan",
-             lambda c, t: check_scan(torch, F, ss, ref, gen, c, t, exp_per_s), scan_cases)):
+             lambda c, t: check_scan(torch, F, ss, ref, gen, c, t, sm_clocks_per_s),
+             scan_cases)):
         if mesh_only and name not in ("decode_attention", "decode_attention_stats"):
             continue
         rows = [check(c, i == 0 or id(c) in timed_extra) for i, c in enumerate(cases)]
@@ -3963,8 +4022,8 @@ def main(mesh_only=False):
                 continue
             library = "none (no single PyTorch call)" if r["library_ms"] is None \
                 else f"{r['library_ms']:.4f} library_device_ms {r['library_device_ms']:.4f}"
-            split = "".join(f" {k} {r[k]:.4f}" for k in ("bound_bytes_ms", "bound_exp_ms")
-                            if k in r)
+            split = "".join(f" {k} {r[k]:.4f}" for k in ("bound_bytes_ms", "bound_exp_sfu_ms",
+                                                         "bound_exp_ms") if k in r)
             where = "the path's shape" if r is main else f"{timed_extra[id(c)]} {r['case']}"
             log(f"{name} at {where}: kernel_ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} "
                 f"host_us {r['host_us']:.1f} plain_ms {r['plain_ms']:.4f} "
@@ -3987,6 +4046,9 @@ def main(mesh_only=False):
             if id(c) in FAMILY_TIMED:
                 family_rows.setdefault(name, {})[FAMILY_TIMED[id(c)]] = {
                     k: r[k] for k in row_keys}
+            if c is scan_one_row or c is scan_narrow:
+                scan_rows[timed_extra[id(c)]] = {
+                    k: r[k] for k in row_keys + SCAN_BOUND_KEYS}
 
     phase_done("phase 2")
     register_llama()
@@ -4124,6 +4186,9 @@ def main(mesh_only=False):
             kernels[-1]["at_bucket_16"] = bucket_rows[name]
         if name in family_rows:
             kernels[-1]["at_family_shapes"] = family_rows[name]
+        if name == "selective_scan":
+            kernels[-1].update({k: r[k] for k in SCAN_BOUND_KEYS})
+            kernels[-1]["at_scan_shapes"] = scan_rows
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -61,10 +61,22 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
 
 // ------------------------------------------------------------ cp.async
 
-// 16 bytes global -> shared; zero-filled when !valid (nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+// 16 bytes global -> shared-space address dst (smem_u32); zero-filled when
+// !valid (nothing is read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  cp_async16(smem_u32(dst), src, valid);
+}
+
+// 4 bytes global -> shared (through L1), for rows that are not 16-byte
+// aligned; zero-filled when !valid (nothing is read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -193,7 +193,8 @@ def test_source_hash_covers_every_kernel_source():
 def test_chip_smoke_logs_the_ptxas_lines_of_the_redesigned_kernels(tmp_path):
     """chip_smoke.py prints the registers, shared memory and spills that
     ptxas reports for the redesigned kernels (flash_attention.cu, mlstm.cu,
-    decode_attention.cu, paged_decode_attention.cu), and only for them."""
+    decode_attention.cu, paged_decode_attention.cu, selective_scan.cu), and
+    only for them."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
@@ -223,6 +224,8 @@ def test_chip_smoke_logs_the_ptxas_lines_of_the_redesigned_kernels(tmp_path):
                      "ptxas info    : Used 167 registers, used 1 barriers",
                      "== mlstm.cu (rc 0)",
                      "ptxas info    : Used 231 registers, used 1 barriers",
+                     "== selective_scan.cu (rc 0)",
+                     "ptxas info    : Used 64 registers",
                      "== paged_decode_attention.cu (rc 0)",
                      "ptxas info    : Used 80 registers, used 1 barriers, 34816 bytes smem"]
     assert chip_smoke.ptxas_lines(tmp_path / "missing" / "lib.so") == [

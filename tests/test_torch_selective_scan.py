@@ -12,6 +12,10 @@ reference takes an associative scan over chunks, the port's loop the
 recurrence in order); bf16 outputs atol 0.2, ten times the bf16 tolerance
 of ``tests/test_kernels.py``, as it holds the Pallas scan.
 """
+import importlib.util
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,9 +28,13 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import selective_scan as ss
 
 ATOL = RTOL = 1e-4
+KERNEL_SOURCE = Path(ss.__file__).resolve().parent / "csrc" / "selective_scan.cu"
+ROOT = Path(__file__).resolve().parents[1]
 BF16_ATOL = 10 * 2e-2
-# tests/test_kernels.py's SCAN_CASES, plus S = 1 and a ragged S with Ds 16
-CASES = [(2, 96, 64, 16), (1, 33, 128, 8), (2, 128, 256, 4), (2, 1, 64, 16), (1, 21, 64, 16)]
+# tests/test_kernels.py's SCAN_CASES, plus S = 1, a ragged S with Ds 16, and
+# jamba's prefill batch of 4 at a ragged S
+CASES = [(2, 96, 64, 16), (1, 33, 128, 8), (2, 128, 256, 4), (2, 1, 64, 16), (1, 21, 64, 16),
+         (4, 40, 128, 16)]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
@@ -179,3 +187,50 @@ def test_ops_export_as_one_node_each_with_fake_shapes():
     _, want_h = tref.mamba_step(x[:, 0], dt[:, 0], a, b[:, 0], c[:, 0], d, h0)
     assert torch.equal(h_a, want_h) and torch.equal(h_b, want_h)   # updated in place
     assert ops.launch_counts()["selective_scan"] == 0
+
+
+def test_kernel_decays_stay_f32():
+    """No exponential of the kernel is taken in half precision: every decay
+    is one ex2.approx.ftz.f32."""
+    src = KERNEL_SOURCE.read_text()
+    assert not re.search(r"ex2\.approx\.(ftz\.)?(f16|bf16)", src)
+    assert "float decay(float x) { return ex2_ftz(x); }" in src
+    assert src.count("decay(") == 2                     # its definition and the loop's one call
+
+
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_scan_compare_variants_apply_to_the_kernel_source():
+    """Each timing-only variant of tools/scan_compare.py --parts patches texts
+    that stand once each in csrc/selective_scan.cu, so every variant builds
+    from this checkout's kernel."""
+    variants = _load(ROOT / "tools" / "scan_compare.py", "scan_compare").VARIANTS
+    src = KERNEL_SOURCE.read_text()
+    assert variants
+    for name, patches in variants.items():
+        for old, new in patches:
+            assert src.count(old) == 1, (name, old)
+            assert old != new
+
+
+def test_scan_bound_at_the_main_shape():
+    """chip_smoke.scan_bound at jamba's prefill (B=4, S=512, Di=16384, Ds=16)
+    on 132 SMs at 1980 MHz: 537 M elements are 0.1284 ms with every
+    exponential on the SFUs; a share of 3/19 on the FP32 pipe balances the
+    two at 8 x 16/19 clocks a warp-element, 0.1081 ms, which is above the
+    bytes' 0.0818 ms and so the bound."""
+    cs = _load(ROOT / "chip_smoke.py", "chip_smoke")
+    row = cs.scan_bound(4.0 * 512 * 16384 * 16, 274e6, 132 * 1980e6)
+    assert row["poly_share"] == pytest.approx(3 / 19)
+    assert row["bound_exp_sfu_ms"] == pytest.approx(0.128384, rel=1e-5)
+    assert row["bound_exp_ms"] == pytest.approx(0.128384 * 16 / 19, rel=1e-5)
+    assert row["bound_bytes_ms"] == pytest.approx(274e6 / 3.35e12 * 1e3)
+    assert row["bound_ms"] == row["bound_exp_ms"] and row["bound_by"] == "operations"
+    bytes_bound = cs.scan_bound(1.0, 274e6, 132 * 1980e6)
+    assert bytes_bound["bound_ms"] == bytes_bound["bound_bytes_ms"]
+    assert bytes_bound["bound_by"] == "bytes"
